@@ -20,17 +20,17 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from triple_accel_tpu import SearchType  # noqa: E402
-from triple_accel_tpu.hamming import (  # noqa: E402
+from triple_accel_jax import SearchType  # noqa: E402
+from triple_accel_jax.hamming import (  # noqa: E402
     hamming_search_simd_with_opts,
     hamming_simd_parallel,
 )
-from triple_accel_tpu.levenshtein import (  # noqa: E402
+from triple_accel_jax.levenshtein import (  # noqa: E402
     levenshtein_k_batch,
     levenshtein_search_simd_with_opts,
     levenshtein_simd_k,
 )
-from triple_accel_tpu.oracle import (  # noqa: E402
+from triple_accel_jax.oracle import (  # noqa: E402
     hamming_naive,
     hamming_search_naive_with_opts,
     levenshtein_naive_k,
@@ -166,7 +166,7 @@ def main():
         )
 
     # group 6 (beyond the reference): batched tracebacks in one program
-    from triple_accel_tpu.oracle import levenshtein_naive_k_with_opts
+    from triple_accel_jax.oracle import levenshtein_naive_k_with_opts
 
     TB = 32 if quick else 256
     dists_t, traces_t = levenshtein_k_batch(
@@ -192,7 +192,7 @@ def main():
     results["mixed_batch_pairs_per_sec"] = len(mixed_a) / dt
 
     # group 8: dictionary search (same-length needles, one resident haystack)
-    from triple_accel_tpu.levenshtein import (
+    from triple_accel_jax.levenshtein import (
         PackedHaystack,
         levenshtein_search_many,
     )
@@ -220,41 +220,6 @@ def main():
     )
     results["dictionary_search_resident_bytes_per_sec"] = (
         len(hay8) * len(needles8) / dt
-    )
-
-    # group 8c: one-call phase decomposition (host prep / upload / kernel
-    # / fetch+resolve), so the e2e number above is attributable
-    import time as _t
-
-    from triple_accel_tpu.ops.pallas.search_myers import (
-        chunk_raw as _craw, myers_search_plan as _plan,
-        prepare_myers_segs as _psegs, suggest_own_len as _sol,
-    )
-    from triple_accel_tpu.ops.search_scan import window_span as _wspan
-    import jax as _jax
-
-    m8 = 24
-    halo8 = min(-(-_wspan(m8, 3, 1, 0) // 256) * 256, len(hay8))
-    own8 = _sol(m8, halo8)
-    G8 = _plan(m8)[2]
-    t0 = _t.perf_counter()
-    segs8, _ = _craw(hay8, halo8, own8)
-    seg_t8 = _psegs(segs8, G8)
-    t_prep = _t.perf_counter() - t0
-    t0 = _t.perf_counter()
-    dev8 = _jax.device_put(seg_t8)
-    dev8.block_until_ready()
-    t_upload = _t.perf_counter() - t0
-    t0 = _t.perf_counter()
-    levenshtein_search_many(needles8, packed, 3, SearchType.All)
-    t_resident = _t.perf_counter() - t0
-    print(
-        json.dumps({
-            "bench": "dictionary_phase_seconds",
-            "host_prep": round(t_prep, 4),
-            "upload": round(t_upload, 4),
-            "resident_call": round(t_resident, 4),
-        })
     )
 
     for name, v in results.items():

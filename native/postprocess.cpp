@@ -1,4 +1,4 @@
-// Native host-side match post-processing for triple_accel_tpu.
+// Native host-side match post-processing for triple_accel_jax.
 //
 // The device wavefronts return per-end-position (distance, length) arrays;
 // turning them into Match lists is an inherently order-dependent sequential
@@ -7,7 +7,7 @@
 // src/hamming.rs:122-143).  For 100MB-scale haystacks this pass runs over
 // ~1e8 entries, which is where NumPy-per-candidate Python costs bite; this
 // C++ implementation is the production path, with a NumPy fallback kept in
-// triple_accel_tpu/levenshtein.py (postprocess_matches).
+// triple_accel_jax/levenshtein.py (postprocess_matches).
 //
 // Exposed via a plain C ABI for ctypes (no pybind11 dependency).
 

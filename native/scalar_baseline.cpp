@@ -1,7 +1,7 @@
 // Honest compiled-CPU comparators for bench.py's vs_baseline.
 //
 // The reference's published perf claim ("up to 20-30x", README.md:10) is
-// its SIMD layer over its *scalar* cores; a fair vs_baseline for the TPU
+// its SIMD layer over its *scalar* cores; a fair vs_baseline for the device
 // build therefore needs a compiled scalar core, not the pure-Python
 // oracle.  Two single-threaded comparators, -O3:
 //

@@ -3,12 +3,12 @@
 
 import numpy as np
 
-from triple_accel_tpu import LEVENSHTEIN_COSTS, SearchType
-from triple_accel_tpu.levenshtein import levenshtein_search_simd_with_opts
-from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
-from triple_accel_tpu.sweep import levenshtein_search_sweep
-from triple_accel_tpu.utils.checkpoint import SweepCheckpoint
-from triple_accel_tpu.utils.profiling import Throughput, kernel_cost_estimate
+from triple_accel_jax import LEVENSHTEIN_COSTS, SearchType
+from triple_accel_jax.levenshtein import levenshtein_search_simd_with_opts
+from triple_accel_jax.oracle import levenshtein_search_naive_with_opts
+from triple_accel_jax.sweep import levenshtein_search_sweep
+from triple_accel_jax.utils.checkpoint import SweepCheckpoint
+from triple_accel_jax.utils.profiling import Throughput
 
 
 def _workload(n=30000, m=12, k=2, seed=3):
@@ -37,7 +37,7 @@ def test_sweep_mesh_equals_meshless():
     the mesh; results must equal the meshless sweep and the oracle."""
     import jax
 
-    from triple_accel_tpu.parallel import make_mesh
+    from triple_accel_jax.parallel import make_mesh
 
     needle, hay, k = _workload()
     mesh = make_mesh(jax.devices()[:4])
@@ -75,7 +75,7 @@ def test_sweep_resume(tmp_path):
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from triple_accel_tpu import Match
+    from triple_accel_jax import Match
 
     p = str(tmp_path / "c.npz")
     c = SweepCheckpoint.load_or_create(p)
@@ -86,14 +86,43 @@ def test_checkpoint_roundtrip(tmp_path):
     assert c2.curr_k == 2
 
 
-def test_throughput_and_roofline():
+def test_throughput_report():
     t = Throughput()
     with t.measure(pairs=100, bytes_processed=1000):
         pass
     r = t.report()
-    assert r["pairs_per_sec"] > 0
-    est = kernel_cost_estimate(batch=16384, rows=1024, band=65)
-    assert est["ideal_pairs_per_sec"] > 0
+    assert r["pairs_per_sec"] > 0 and r["bytes_per_sec"] > 0
+    assert r["seconds"] == t.seconds
+
+
+def test_compile_cache_dir(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins when set (and nothing else is set);
+    otherwise the cache sits at the fixed path inside the checkout."""
+    import os
+
+    import jax
+
+    from triple_accel_jax.utils import runtime
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+    before = jax.config.jax_compilation_cache_dir
+    assert runtime.setup_compile_cache() == "/elsewhere"
+    assert jax.config.jax_compilation_cache_dir == before
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    assert runtime.setup_compile_cache() == runtime.CACHE_DIR
+    assert jax.config.jax_compilation_cache_dir == runtime.CACHE_DIR
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert runtime.CACHE_DIR == os.path.join(root, ".jax_cache")
+
+
+def test_require_gpu_refuses_other_backends():
+    """Measurement scripts stop on a backend that is not a GPU."""
+    import pytest
+
+    from triple_accel_jax.utils.runtime import require_gpu
+
+    with pytest.raises(SystemExit, match="no GPU"):
+        require_gpu()
 
 
 def test_sweep_best_curr_k_shrinks(tmp_path):
@@ -101,9 +130,9 @@ def test_sweep_best_curr_k_shrinks(tmp_path):
     # slabs search with the shrunken threshold — results identical to the
     # monolithic search.
     import numpy as np
-    from triple_accel_tpu import SearchType, levenshtein_search
-    from triple_accel_tpu.levenshtein import levenshtein_search_simd_with_opts
-    from triple_accel_tpu.types import LEVENSHTEIN_COSTS
+    from triple_accel_jax import SearchType, levenshtein_search
+    from triple_accel_jax.levenshtein import levenshtein_search_simd_with_opts
+    from triple_accel_jax.types import LEVENSHTEIN_COSTS
 
     rng = np.random.default_rng(5)
     hay = rng.integers(65, 70, 4000).astype(np.uint8)
@@ -122,12 +151,12 @@ def test_sweep_best_curr_k_shrinks(tmp_path):
 
 
 def test_multihost_allgather_single_process():
-    from triple_accel_tpu.parallel.multihost import (
+    from triple_accel_jax.parallel.multihost import (
         allgather_matches,
         decode_matches,
         encode_matches,
     )
-    from triple_accel_tpu.types import Match
+    from triple_accel_jax.types import Match
 
     ms = [Match(1, 5, 2), Match(7, 9, 0)]
     assert allgather_matches(ms) == ms
@@ -137,7 +166,7 @@ def test_multihost_allgather_single_process():
 
 def test_dump_lowered(tmp_path):
     import numpy as np
-    from triple_accel_tpu.utils.inspect_ir import dump_lowered
+    from triple_accel_jax.utils.inspect_ir import dump_lowered
 
     def f(x):
         return x * 2 + 1

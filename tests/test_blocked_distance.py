@@ -1,44 +1,37 @@
-"""Chunked blocked Myers distance kernel (interpret mode): exact
-unit-cost / rdamerau distances for any pair lengths, per-lane shapes —
-the native replacement for the wide-band (`2*unit_k+1 > 8192`) scan
-fallback.  Conformance anchor: the scalar oracle / C++ comparators."""
-
-import os
+"""Unbounded-band distances: pairs whose band passes the bit-parallel
+kernel's word limit run the banded `lax.scan` wavefront
+(ops/band_scan.py) with a band as wide as the longer string, which makes
+it exact for any pair lengths.  These are the input cases of the removed
+chunked blocked Myers kernel, re-pointed at the engine that now serves
+them.  Conformance anchor: the scalar oracle / C++ comparators."""
 
 import numpy as np
 import pytest
 
-from triple_accel_tpu.oracle.levenshtein import levenshtein_naive_with_opts
-from triple_accel_tpu.types import LEVENSHTEIN_COSTS, RDAMERAU_COSTS
+from triple_accel_jax.ops.band_scan import band_scan_distance, prepare_band_inputs
+from triple_accel_jax.oracle.levenshtein import levenshtein_naive_with_opts
+from triple_accel_jax.types import LEVENSHTEIN_COSTS, RDAMERAU_COSTS
 
 
 def _run(pairs, damerau):
-    from triple_accel_tpu.ops.pallas.myers_chunked import (
-        blocked_distance_chunked,
-        prepare_blocked_distance_inputs,
-    )
-
-    a_list = [p[0] for p in pairs]
-    b_list = [p[1] for p in pairs]
-    nchar, seg, m_row, n_row, n_strips, n_chunks = (
-        prepare_blocked_distance_inputs(a_list, b_list)
-    )
-    out = np.asarray(
-        blocked_distance_chunked(
-            nchar, seg, m_row, n_row,
-            n_strips=n_strips, n_chunks=n_chunks,
-            damerau=damerau, interpret=True,
-        )
-    )
     costs = RDAMERAU_COSTS if damerau else LEVENSHTEIN_COSTS
+    swapped = [(a, b) if len(a) <= len(b) else (b, a) for a, b in pairs]
+    a_list = [p[0] for p in swapped]
+    b_list = [p[1] for p in swapped]
+    width = max(len(b) for b in b_list)
+    max_m = -(-max(max(len(a) for a in a_list), 1) // 8) * 8
+    a_pad, b_pad, m, n = prepare_band_inputs(a_list, b_list, width, max_m)
+    out = np.asarray(band_scan_distance(
+        a_pad, b_pad, m, n, unit_k=width, max_m=max_m,
+        costs_t=(1, 1, 0, 1 if damerau else 0, damerau), trace_on=False,
+    )[0])
     for p, (a, b) in enumerate(pairs):
-        got = len(b) if len(a) == 0 else int(out[p])  # caller-side fixup
         ref = levenshtein_naive_with_opts(a, b, False, costs)[0]
-        assert got == ref, (p, len(a), len(b), got, ref)
+        assert int(out[p]) == ref, (p, len(a), len(b), int(out[p]), ref)
 
 
 @pytest.mark.parametrize("damerau", [False, True])
-def test_blocked_distance_mixed_batch(damerau):
+def test_full_band_distance_mixed_batch(damerau):
     r = np.random.default_rng(11 + damerau)
     rnd = lambda n: r.integers(0, 4, n).astype(np.uint8)  # noqa: E731
     pairs = [
@@ -53,9 +46,8 @@ def test_blocked_distance_mixed_batch(damerau):
 
 
 @pytest.mark.parametrize("damerau", [False, True])
-def test_blocked_distance_multi_strip_chunk(damerau):
-    """Needle crossing the 64-word strip boundary AND text crossing the
-    1024-column chunk boundary, plus a planted near-identical pair."""
+def test_full_band_distance_long_pairs(damerau):
+    """1300- and 1100-char pairs, plus a planted near-identical pair."""
     r = np.random.default_rng(23 + damerau)
     rnd = lambda n: r.integers(0, 4, n).astype(np.uint8)  # noqa: E731
     a = rnd(1300)
@@ -66,26 +58,29 @@ def test_blocked_distance_multi_strip_chunk(damerau):
     _run(pairs, damerau)
 
 
-@pytest.mark.slowcompile
-def test_wide_band_routes_to_blocked_distance():
-    """levenshtein() on a long dissimilar pair (unit_k > 4095, the former
-    scan cliff) dispatches to the chunked kernel and stays exact (C++
+def test_wide_band_routes_to_scan():
+    """levenshtein_k_batch on a long dissimilar pair at an unbounded
+    threshold (a band far past the kernel's word limit) dispatches to
+    the scan even with the kernel arms on, and stays exact (C++
     bit-parallel comparator as the reference)."""
-    from triple_accel_tpu.dispatch import last_dispatch
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
-    from triple_accel_tpu.utils.native import myers_distance_batch_native
+    import os
+
+    from triple_accel_jax.dispatch import interpret_kernels, last_dispatch
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
+    from triple_accel_jax.utils.native import myers_distance_batch_native
 
     r = np.random.default_rng(3)
     a = r.integers(0, 4, 4200).astype(np.uint8)
     b = r.integers(0, 4, 4300).astype(np.uint8)
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
+    os.environ["TRIPLE_ACCEL_FORCE_PATH"] = "pallas"
     try:
-        out = levenshtein_k_batch([a], [b], (1 << 32) - 1)
+        with interpret_kernels():
+            out = levenshtein_k_batch([a], [b], (1 << 32) - 1)
     finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
-    assert last_dispatch().path == "myers_blocked_distance"
+        del os.environ["TRIPLE_ACCEL_FORCE_PATH"]
+    assert last_dispatch().path == "scan"
     ref = myers_distance_batch_native([a], [b], 1 << 31)
     if ref is not None:
         assert int(out[0]) == int(ref[0])
-    else:  # native lib not built: cross-check a prefix with the oracle
+    else:  # native lib not built
         assert int(out[0]) > 0

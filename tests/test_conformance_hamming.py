@@ -6,8 +6,8 @@ src/hamming.rs.  Every assertion value is taken verbatim from the reference.
 import numpy as np
 import pytest
 
-from triple_accel_tpu import Match, SearchType, alloc_str, fill_str
-from triple_accel_tpu.hamming import (
+from triple_accel_jax import Match, SearchType, alloc_str, fill_str
+from triple_accel_jax.hamming import (
     hamming,
     hamming_batch,
     hamming_search,
@@ -18,7 +18,7 @@ from triple_accel_tpu.hamming import (
     hamming_simd_movemask,
     hamming_simd_parallel,
 )
-from triple_accel_tpu.oracle import (
+from triple_accel_jax.oracle import (
     hamming_naive,
     hamming_words_64,
     hamming_words_128,
@@ -106,7 +106,7 @@ def test_hamming_search_needle_longer_than_haystack():
 
 
 def test_hamming_search_null_bytes_supported_on_device():
-    # TPU deviation (documented): the device path masks by length instead of
+    # device deviation (documented): the device path masks by length instead of
     # zero-padding, so null bytes are allowed where the reference panics.
     res = hamming_search_simd_with_opts(b"a\0c", b"xxa\0cxx", 0, SearchType.All)
     assert res == [Match(start=2, end=5, k=0)]

@@ -5,8 +5,8 @@ Every assertion value is verbatim from the reference.
 
 import pytest
 
-from triple_accel_tpu import Edit, EditCosts, EditType, LEVENSHTEIN_COSTS
-from triple_accel_tpu.levenshtein import (
+from triple_accel_jax import Edit, EditCosts, EditType, LEVENSHTEIN_COSTS
+from triple_accel_jax.levenshtein import (
     levenshtein,
     levenshtein_exp,
     levenshtein_exp_with_opts,
@@ -232,7 +232,7 @@ def test_generic_alphabet_over_256_symbols():
     assert res is not None and res[0] == 3
 
     # translate_str keeps its reference contract: None above 256 distinct
-    from triple_accel_tpu.levenshtein import levenshtein_simd_k_str, translate_str
+    from triple_accel_jax.levenshtein import levenshtein_simd_k_str, translate_str
 
     shared = []
     assert translate_str(shared, a) is None

@@ -6,8 +6,8 @@ values verbatim from the reference.
 
 import pytest
 
-from triple_accel_tpu import EditCosts, LEVENSHTEIN_COSTS, Match, RDAMERAU_COSTS, SearchType
-from triple_accel_tpu.levenshtein import (
+from triple_accel_jax import EditCosts, LEVENSHTEIN_COSTS, Match, RDAMERAU_COSTS, SearchType
+from triple_accel_jax.levenshtein import (
     levenshtein_search_naive,
     levenshtein_search_naive_with_opts,
     levenshtein_search_simd,

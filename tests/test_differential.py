@@ -6,23 +6,26 @@ oracle on randomized workloads, using the reference's mutation model
 (benches:126-152, 175-198).
 """
 
+import contextlib
+import os
+
 import numpy as np
 import pytest
 
-from triple_accel_tpu import EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType
-from triple_accel_tpu.hamming import (
+from triple_accel_jax import EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType
+from triple_accel_jax.hamming import (
     hamming_batch,
     hamming_search_simd_with_opts,
     hamming_simd_parallel,
 )
-from triple_accel_tpu.levenshtein import (
+from triple_accel_jax.levenshtein import (
     levenshtein,
     levenshtein_exp,
     levenshtein_k_batch,
     levenshtein_search_simd_with_opts,
     levenshtein_simd_k_with_opts,
 )
-from triple_accel_tpu.oracle import (
+from triple_accel_jax.oracle import (
     hamming_naive,
     hamming_search_naive_with_opts,
     levenshtein_naive_k_with_opts,
@@ -31,6 +34,19 @@ from triple_accel_tpu.oracle import (
 )
 
 SEED = 1234
+
+
+@contextlib.contextmanager
+def _kernels_forced():
+    """The kernel arms forced on, in Pallas interpret mode on the CPU."""
+    from triple_accel_jax.dispatch import interpret_kernels
+
+    os.environ["TRIPLE_ACCEL_FORCE_PATH"] = "pallas"
+    try:
+        with interpret_kernels():
+            yield
+    finally:
+        del os.environ["TRIPLE_ACCEL_FORCE_PATH"]
 
 
 def rand_str(rng, length):
@@ -110,7 +126,7 @@ def test_dense_hamming_search_default_k():
     """Low-complexity text with the blessed default k = ceil(m/2): every
     block is a candidate — the dense regime must stay exact through the
     single streaming postprocess pass (native or numpy)."""
-    from triple_accel_tpu.oracle.hamming import default_hamming_k
+    from triple_accel_jax.oracle.hamming import default_hamming_k
 
     rng = np.random.default_rng(SEED + 77)
     needle = rng.integers(0, 2, 9).astype(np.uint8)
@@ -236,8 +252,8 @@ def test_chunked_search_equals_unchunked():
 def test_levenshtein_exp_batch_matches_oracle():
     """Batched exponential search resolves every pair exactly, including
     pairs whose distance exceeds the initial k=30 bucket."""
-    from triple_accel_tpu.levenshtein import levenshtein_exp_batch
-    from triple_accel_tpu.oracle import levenshtein_naive
+    from triple_accel_jax.levenshtein import levenshtein_exp_batch
+    from triple_accel_jax.oracle import levenshtein_naive
 
     rng = np.random.default_rng(5)
     a_list, b_list = [], []
@@ -254,17 +270,16 @@ def test_levenshtein_exp_batch_matches_oracle():
         assert int(got[i]) == levenshtein_naive(a, b), i
 
 
-@pytest.mark.slowcompile
 def test_rand_levenshtein_batch_mesh_engines():
     """Randomized mesh-vs-meshless differential over the per-device
-    engine ladder (round 5): unit costs (sharded Myers), rdamerau and
-    affine (sharded band kernel) — forced onto the Pallas engines, every
-    pair also spot-checked against the oracle."""
+    engine ladder: unit costs (sharded Myers kernel), rdamerau and affine
+    (sharded scan) — with the kernel arms on, every pair also
+    spot-checked against the oracle."""
     import os
 
     import jax
 
-    from triple_accel_tpu.parallel import make_mesh
+    from triple_accel_jax.parallel import make_mesh
 
     rng = np.random.default_rng(SEED + 7)
     mesh = make_mesh(jax.devices()[:4])
@@ -278,8 +293,7 @@ def test_rand_levenshtein_batch_mesh_engines():
             a, b = b, a
         a_list.append(a)
         b_list.append(b)
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    with _kernels_forced():
         for costs in (LEVENSHTEIN_COSTS, RDAMERAU_COSTS,
                       EditCosts(2, 1, 2, None)):
             got = levenshtein_k_batch(a_list, b_list, k, costs, mesh=mesh)
@@ -289,23 +303,19 @@ def test_rand_levenshtein_batch_mesh_engines():
                 r = levenshtein_naive_k_with_opts(a_list[p], b_list[p], k,
                                                   False, costs)
                 assert int(got[p]) == (-1 if r is None else r[0]), (p, costs)
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
 
 
-@pytest.mark.slowcompile
 def test_rand_search_sharded_engines():
     """Randomized sharded-search differential over the per-device engine
-    ladder (round 5): unit/rdamerau (sharded subgroup Myers) and affine
-    costs (sharded FLAT kernel), both modes, planted mutated needles
-    straddling shard boundaries — vs the oracle and the single-device
-    search."""
+    ladder: unit/rdamerau (sharded Myers kernel) and affine costs (sharded
+    scan), both modes, planted mutated needles straddling shard
+    boundaries — vs the oracle and the single-device search."""
     import os
 
     import jax
 
-    from triple_accel_tpu.levenshtein import levenshtein_search_sharded
-    from triple_accel_tpu.parallel import make_mesh
+    from triple_accel_jax.levenshtein import levenshtein_search_sharded
+    from triple_accel_jax.parallel import make_mesh
 
     rng = np.random.default_rng(SEED + 8)
     mesh = make_mesh(jax.devices()[:4])
@@ -313,8 +323,7 @@ def test_rand_search_sharded_engines():
     needle = rand_str(rng, m)
     hay = plant_needles(rng, needle, n, 5, k)
     hay[300 - m // 2: 300 + m - m // 2] = needle  # shard 0/1 straddler
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    with _kernels_forced():
         for costs in (LEVENSHTEIN_COSTS, RDAMERAU_COSTS,
                       EditCosts(2, 1, 2, None)):
             for st in (SearchType.All, SearchType.Best):
@@ -328,5 +337,3 @@ def test_rand_search_sharded_engines():
                     needle, hay, k, st, costs, False
                 )
                 assert got == dev, (st, costs)
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]

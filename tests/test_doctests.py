@@ -8,16 +8,16 @@ import importlib
 
 import pytest
 
-import triple_accel_tpu
+import triple_accel_jax
 
-# NOTE: triple_accel_tpu.hamming / .levenshtein are FUNCTIONS at package
+# NOTE: triple_accel_jax.hamming / .levenshtein are FUNCTIONS at package
 # level (reference re-export parity, lib.rs:126-127); fetch the modules
 # through importlib.
 MODULES = [
-    "triple_accel_tpu.hamming",
-    "triple_accel_tpu.levenshtein",
-    "triple_accel_tpu.oracle.hamming",
-    "triple_accel_tpu.oracle.levenshtein",
+    "triple_accel_jax.hamming",
+    "triple_accel_jax.levenshtein",
+    "triple_accel_jax.oracle.hamming",
+    "triple_accel_jax.oracle.levenshtein",
 ]
 
 
@@ -27,9 +27,9 @@ def test_module_doctests(name):
     res = doctest.testmod(
         mod,
         extraglobs={
-            "Match": triple_accel_tpu.Match,
-            "Edit": triple_accel_tpu.Edit,
-            "EditType": triple_accel_tpu.EditType,
+            "Match": triple_accel_jax.Match,
+            "Edit": triple_accel_jax.Edit,
+            "EditType": triple_accel_jax.EditType,
         },
         verbose=False,
     )

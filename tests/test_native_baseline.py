@@ -5,13 +5,13 @@ vs_baseline and as an extra differential witness for the device paths."""
 import numpy as np
 import pytest
 
-from triple_accel_tpu.oracle.levenshtein import levenshtein_naive_k_with_opts
-from triple_accel_tpu.types import (
+from triple_accel_jax.oracle.levenshtein import levenshtein_naive_k_with_opts
+from triple_accel_jax.types import (
     EditCosts,
     LEVENSHTEIN_COSTS,
     RDAMERAU_COSTS,
 )
-from triple_accel_tpu.utils.native import (
+from triple_accel_jax.utils.native import (
     myers_distance_batch_native,
     native_available,
     scalar_banded_batch_native,

@@ -7,8 +7,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from triple_accel_tpu import Match, SearchType
-from triple_accel_tpu.utils import native as native_mod
+from triple_accel_jax import Match, SearchType
+from triple_accel_jax.utils import native as native_mod
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -82,7 +82,7 @@ def test_native_hamming_matches_python(best):
 
 def test_search_intervals_matches_search_all():
     """One batched ta_search_intervals call == per-window ta_search_all."""
-    from triple_accel_tpu import LEVENSHTEIN_COSTS, RDAMERAU_COSTS
+    from triple_accel_jax import LEVENSHTEIN_COSTS, RDAMERAU_COSTS
 
     rng = np.random.default_rng(7)
     for costs in (LEVENSHTEIN_COSTS, RDAMERAU_COSTS):
@@ -122,9 +122,9 @@ def test_search_intervals_matches_search_all():
 def test_resolve_hits_batch_matches_oracle_fallback():
     """The batched resolver must give identical candidates with and
     without the native library (python-oracle interval fallback)."""
-    from triple_accel_tpu import LEVENSHTEIN_COSTS
-    from triple_accel_tpu.levenshtein import _resolve_hits_batch
-    from triple_accel_tpu.ops.search_scan import window_span
+    from triple_accel_jax import LEVENSHTEIN_COSTS
+    from triple_accel_jax.levenshtein import _resolve_hits_batch
+    from triple_accel_jax.ops.search_scan import window_span
 
     rng = np.random.default_rng(8)
     needle = rng.integers(0, 3, 6).astype(np.uint8)
@@ -132,7 +132,7 @@ def test_resolve_hits_batch_matches_oracle_fallback():
     k = 2
     span = window_span(len(needle), k, 1, 0)
     # hit positions from the oracle (All mode) — a dense stream
-    from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
+    from triple_accel_jax.oracle import levenshtein_search_naive_with_opts
 
     oracle_all = levenshtein_search_naive_with_opts(
         needle, hay, k, SearchType.All, LEVENSHTEIN_COSTS, False
@@ -141,13 +141,13 @@ def test_resolve_hits_batch_matches_oracle_fallback():
     assert gpos.size > 50  # dense over this alphabet
     got_native = _resolve_hits_batch(needle, hay, gpos, k,
                                      LEVENSHTEIN_COSTS, span)
-    os.environ["TRIPLE_ACCEL_TPU_NO_NATIVE"] = "1"
+    os.environ["TRIPLE_ACCEL_NO_NATIVE"] = "1"
     native_mod._load.cache_clear()
     try:
         got_py = _resolve_hits_batch(needle, hay, gpos, k,
                                      LEVENSHTEIN_COSTS, span)
     finally:
-        del os.environ["TRIPLE_ACCEL_TPU_NO_NATIVE"]
+        del os.environ["TRIPLE_ACCEL_NO_NATIVE"]
         native_mod._load.cache_clear()
     assert got_native == got_py
     # every oracle end is confirmed with the oracle's (dist, len)
@@ -159,11 +159,11 @@ def test_resolve_hits_batch_matches_oracle_fallback():
 
 def test_end_to_end_search_uses_native():
     """Search through the public API with native postprocessing built."""
-    from triple_accel_tpu import LEVENSHTEIN_COSTS
-    from triple_accel_tpu.levenshtein import (
+    from triple_accel_jax import LEVENSHTEIN_COSTS
+    from triple_accel_jax.levenshtein import (
         levenshtein_search_simd_with_opts,
     )
-    from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
+    from triple_accel_jax.oracle import levenshtein_search_naive_with_opts
 
     rng = np.random.default_rng(2)
     needle = rng.integers(33, 127, 10).astype(np.uint8)

@@ -1,23 +1,22 @@
-"""Pallas kernel conformance: the native path must agree exactly with the
-scalar oracle (the analog of forcing each jewel-* feature arm in the
-reference's CI matrix).  Runs in interpreter mode on the CPU test mesh; the
-compiled path is exercised on real TPU by bench.py and the verify flow.
+"""Distance engines that serve every cost model: the banded `lax.scan`
+wavefront (ops/band_scan.py) must agree exactly with the scalar oracle
+wherever the true distance fits the band, and the dispatcher must route
+each batch to the right engine.  The input cases are those the removed
+general-cost band kernels were tested on, re-pointed at the scan that now
+serves them.
 """
 
 import numpy as np
 import pytest
 
-from triple_accel_tpu import EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS
-from triple_accel_tpu.oracle import (
+from triple_accel_jax import EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS
+from triple_accel_jax.oracle import (
     levenshtein_naive_k_with_opts,
     levenshtein_naive_with_opts,
 )
-from triple_accel_tpu.ops.pallas.lev_band import (
-    band_distance_pallas,
-    prepare_pallas_inputs,
-)
+from triple_accel_jax.ops.band_scan import band_scan_distance, prepare_band_inputs
 
-INF32 = 1 << 30
+INF32 = 1 << 29
 
 
 def _costs_t(c):
@@ -25,14 +24,21 @@ def _costs_t(c):
             c.transpose_cost_or_zero, c.allow_transpose)
 
 
+def _scan(a_list, b_list, unit_k, max_m, ct):
+    ap, bp, ma, na = prepare_band_inputs(a_list, b_list, unit_k, max_m)
+    return np.asarray(band_scan_distance(
+        ap, bp, ma, na, unit_k=unit_k, max_m=max_m, costs_t=ct,
+        trace_on=False)[0])
+
+
 @pytest.mark.parametrize(
     "costs",
     [LEVENSHTEIN_COSTS, RDAMERAU_COSTS, EditCosts(2, 1, 2, None),
      EditCosts(3, 2, 1, 2)],
 )
-def test_pallas_band_distance_matches_oracle(costs):
+def test_band_distance_matches_oracle(costs):
     rng = np.random.default_rng(42 + costs.mismatch_cost)
-    unit_k, max_m, k = 8, 64, 8
+    unit_k, max_m = 8, 64
     a_list, b_list, expected = [], [], []
     for _ in range(40):
         ln = int(rng.integers(0, 60))
@@ -52,12 +58,7 @@ def test_pallas_band_distance_matches_oracle(costs):
         ref = levenshtein_naive_k_with_opts(a, b, 10**9, False, costs)
         expected.append(ref[0])
 
-    a_t, b_t, m, n, c_fin = prepare_pallas_inputs(a_list, b_list, unit_k, max_m)
-    dist = band_distance_pallas(
-        a_t, b_t, m, n, c_fin,
-        unit_k=unit_k, max_m=max_m, costs_t=_costs_t(costs), interpret=True,
-    )
-    dist = np.asarray(dist)[0]
+    dist = _scan(a_list, b_list, unit_k, max_m, _costs_t(costs))
     for p, exp in enumerate(expected):
         got = int(dist[p])
         # the band may cap the distance above unit_k deviations; the oracle
@@ -69,19 +70,14 @@ def test_pallas_band_distance_matches_oracle(costs):
             assert got >= exp or got >= INF32
 
 
-@pytest.mark.parametrize("band_dtype", ["int8", "int16", "int32"])
-def test_pallas_band_dtype_ladder(band_dtype):
-    """The narrow-band dtypes (the reference's 8/16/32-bit Jewel ladder,
-    levenshtein.rs:766-823) must agree exactly with the oracle below the
-    threshold and only saturate above it."""
-    from triple_accel_tpu.ops.pallas.lev_band import select_band_dtype
-
+@pytest.mark.parametrize("unit_k", [4, 8, 16])
+def test_band_distance_saturates_above_band(unit_k):
+    """Narrow and wide bands (the widths the removed 8/16/32-bit band
+    dtype ladder was tested at) must agree exactly with the oracle below
+    the threshold and only over-estimate above it."""
     costs = RDAMERAU_COSTS
-    ct = _costs_t(costs)
     rng = np.random.default_rng(3)
-    unit_k, max_m = 8, 64
-    name, inf = select_band_dtype(16, unit_k, ct)
-    assert name == "int8" and inf > 16  # unit costs, narrow band -> int8 fits
+    max_m = 64
     a_list, b_list, expected = [], [], []
     for _ in range(50):
         ln = int(rng.integers(1, 60))
@@ -99,45 +95,34 @@ def test_pallas_band_dtype_ladder(band_dtype):
         expected.append(
             levenshtein_naive_k_with_opts(a, b, 10**9, False, costs)[0]
         )
-    a_t, b_t, m, n, c_fin = prepare_pallas_inputs(a_list, b_list, unit_k, max_m)
-    dist = np.asarray(
-        band_distance_pallas(
-            a_t, b_t, m, n, c_fin,
-            unit_k=unit_k, max_m=max_m, costs_t=ct,
-            band_dtype=band_dtype, interpret=True,
-        )
-    )[0]
+    dist = _scan(a_list, b_list, unit_k, max_m, _costs_t(costs))
     for p, exp in enumerate(expected):
         got = int(dist[p])
         if exp <= unit_k:
-            assert got == exp, f"pair {p}: {got} != {exp} ({band_dtype})"
+            assert got == exp, f"pair {p}: {got} != {exp} (uk={unit_k})"
         else:
             assert got >= min(exp, unit_k + 1)
 
 
-def test_select_band_dtype_headroom_rules():
-    from triple_accel_tpu.ops.pallas.lev_band import select_band_dtype
+def test_select_cost_bucket_headroom_rules():
+    from triple_accel_jax.dispatch import select_cost_bucket
 
-    # unit costs, small band: int8 with inf well above max_k
-    name, inf = select_band_dtype(32, 32, (1, 1, 0, 0, False))
-    assert name == "int8" and inf == 127 - 64 and inf > 32
-    # max_k too large for int8 headroom -> int16
-    name, inf = select_band_dtype(100, 32, (1, 1, 0, 0, False))
-    assert name == "int16" and inf > 100
-    # huge costs force int32
-    name, inf = select_band_dtype(10**6, 32, (255, 255, 255, 0, False))
-    assert name == "int32"
-    # wide band pushes the affine-chain intermediate past int8
-    name, _ = select_band_dtype(8, 256, (1, 1, 0, 0, False))
-    assert name == "int16"
+    assert select_cost_bucket(0) == "u8"
+    assert select_cost_bucket(254) == "u8"
+    assert select_cost_bucket(255) == "u16"
+    assert select_cost_bucket((1 << 16) - 2) == "u16"
+    assert select_cost_bucket(1 << 16) == "u32"
+    assert select_cost_bucket(1 << 40) == "u32"
 
 
 def test_pallas_forced_dispatch_end_to_end():
-    """levenshtein_k_batch with the pallas path forced (interpret on CPU)
-    must equal the scan path."""
+    """levenshtein_k_batch with the kernel path forced: on a CPU backend it
+    raises instead of interpreting; under the test switch (interpret mode)
+    it must equal the scan path."""
     import os
 
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
+    from triple_accel_jax.dispatch import interpret_kernels, last_dispatch
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
 
     rng = np.random.default_rng(0)
     a_list = [rng.integers(33, 127, 50).astype(np.uint8) for _ in range(10)]
@@ -148,27 +133,57 @@ def test_pallas_forced_dispatch_end_to_end():
         b_list.append(b)
 
     ref = levenshtein_k_batch(a_list, b_list, 16)
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
+    assert last_dispatch().path == "scan"
+    os.environ["TRIPLE_ACCEL_FORCE_PATH"] = "pallas"
     try:
-        got = levenshtein_k_batch(a_list, b_list, 16)
+        with pytest.raises(RuntimeError, match="needs a GPU"):
+            levenshtein_k_batch(a_list, b_list, 16)
+        with interpret_kernels():
+            got = levenshtein_k_batch(a_list, b_list, 16)
+        assert last_dispatch().path == "myers"
     finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
+        del os.environ["TRIPLE_ACCEL_FORCE_PATH"]
     assert got.tolist() == ref.tolist()
 
 
+@pytest.mark.parametrize("override,plain,switched", [
+    (None, False, True),
+    ("scan", False, False),
+    ("oracle", False, False),
+    ("pallas", RuntimeError, True),
+    ("jnp", False, True),  # not an override: ignored
+])
+def test_use_kernels_choice(monkeypatch, override, plain, switched):
+    """The one backend decision on a CPU backend, without and with the
+    test switch, for every override value."""
+    from triple_accel_jax.dispatch import interpret_kernels, use_kernels
+
+    if override is None:
+        monkeypatch.delenv("TRIPLE_ACCEL_FORCE_PATH", raising=False)
+    else:
+        monkeypatch.setenv("TRIPLE_ACCEL_FORCE_PATH", override)
+    if plain is RuntimeError:
+        with pytest.raises(RuntimeError, match="needs a GPU"):
+            use_kernels()
+    else:
+        assert use_kernels() is plain
+    with interpret_kernels():
+        assert use_kernels() is switched
+
+
 def test_batched_traceback_matches_oracle():
-    # VERDICT r1 item 1: trace_on on the batched path — device wavefront +
-    # device walk, differential vs the banded oracle, all cost models,
-    # including under the forced pallas dispatch.
+    # trace_on on the batched path — device wavefront + device walk,
+    # differential vs the banded oracle, all cost models, with the kernel
+    # arms switched on (traced batches always run the scan walk).
     import os
 
     import numpy as np
 
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
-    from triple_accel_tpu.oracle.levenshtein import (
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
+    from triple_accel_jax.oracle.levenshtein import (
         levenshtein_naive_k_with_opts,
     )
-    from triple_accel_tpu.types import (
+    from triple_accel_jax.types import (
         EditCosts,
         LEVENSHTEIN_COSTS,
         RDAMERAU_COSTS,
@@ -182,8 +197,9 @@ def test_batched_traceback_matches_oracle():
         a_list.append(rng.integers(0, 5, la).astype(np.uint8))
         b_list.append(rng.integers(0, 5, lb).astype(np.uint8))
 
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    from triple_accel_jax.dispatch import interpret_kernels
+
+    with interpret_kernels():
         for costs in (
             LEVENSHTEIN_COSTS,
             RDAMERAU_COSTS,
@@ -203,28 +219,17 @@ def test_batched_traceback_matches_oracle():
                     else:
                         assert dists[i] == ref[0], (i, k, costs)
                         assert traces[i] == ref[1], (i, k, costs)
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
 
 
-def test_tiled_band_kernel_matches_scan():
-    # VERDICT r1 item 2: row-strip tiled band kernel (unbounded string
-    # length, uint8 upload, band state in VMEM scratch across strips) must
-    # equal the scan wavefront cell-for-cell — alphabet includes char 0 to
-    # prove the 0-pad safety argument.
-    import numpy as np
-
-    from triple_accel_tpu.ops.band_scan import (
-        band_scan_distance,
-        prepare_band_inputs,
-    )
-    from triple_accel_tpu.ops.pallas.lev_band import (
-        band_distance_pallas_tiled,
-        prepare_tiled_inputs,
-    )
+def test_long_band_scan_matches_oracle():
+    # the long-string cases of the removed row-strip tiled band kernel,
+    # re-pointed at the scan wavefront: alphabet includes char 0 to prove
+    # the 0-pad safety argument
+    from triple_accel_jax.types import EditCosts as EC
 
     rng = np.random.default_rng(7)
     for ct in [(1, 1, 0, 0, False), (1, 1, 0, 1, True), (3, 2, 4, 2, True)]:
+        costs = EC(ct[0], ct[1], ct[2], ct[3] if ct[4] else None)
         a_list, b_list = [], []
         for _ in range(24):
             la = int(rng.integers(0, 70))
@@ -233,45 +238,29 @@ def test_tiled_band_kernel_matches_scan():
             b = rng.integers(0, 3, lb).astype(np.uint8)
             if la > lb:
                 a, b = b, a
+            if len(b) - len(a) > 8:
+                continue
             a_list.append(a)
             b_list.append(b)
-        uk, strip = 8, 16  # tiny strip -> many grid steps carry the state
-        a_s, b_s, m2, n2, c_fin, ns = prepare_tiled_inputs(
-            a_list, b_list, uk, strip
-        )
-        assert a_s.dtype == np.uint8  # compact upload layout
-        dist = np.asarray(
-            band_distance_pallas_tiled(
-                a_s, b_s, m2, n2, c_fin,
-                unit_k=uk, strip=strip, n_strips=ns, costs_t=ct,
-                interpret=True,
-            )
-        )[0]
+        uk = 8
+        dist = _scan(a_list, b_list, uk, 128, ct)
         for i, (a, b) in enumerate(zip(a_list, b_list)):
-            if len(b) - len(a) > uk:
-                continue
-            ap, bp, ma, na = prepare_band_inputs([a], [b], uk, max(len(a), 1))
-            ref = np.asarray(
-                band_scan_distance(
-                    ap, bp, ma, na,
-                    unit_k=uk, max_m=max(len(a), 1), costs_t=ct,
-                    trace_on=False,
-                )[0]
-            )[0]
-            assert (dist[i] == ref) or (
-                dist[i] >= 1 << 29 and ref >= 1 << 29
-            ), (i, ct)
+            ref = levenshtein_naive_k_with_opts(a, b, 10**9, False, costs)[0]
+            if ref <= uk:
+                assert dist[i] == ref, (i, ct)
+            else:
+                assert dist[i] >= min(ref, uk + 1), (i, ct)
 
 
 def test_bucketed_batch_identical():
-    # VERDICT r1 item 5: per-bucket dispatch on mixed-length batches must be
+    # per-bucket dispatch on mixed-length batches must be
     # byte-identical to the single-launch result (and to the oracle).
     import importlib
 
     import numpy as np
 
-    lev = importlib.import_module("triple_accel_tpu.levenshtein")
-    from triple_accel_tpu.oracle.levenshtein import (
+    lev = importlib.import_module("triple_accel_jax.levenshtein")
+    from triple_accel_jax.oracle.levenshtein import (
         levenshtein_naive_k_with_opts,
     )
 
@@ -308,17 +297,17 @@ def test_bucketed_batch_identical():
 
 def test_batched_traceback_scan_path_matches_oracle():
     # the scan trace path (band_trace_batch + shared device walk) is the
-    # default off-TPU / wide-band fallback — it needs its own differential
+    # default on the CPU and the wide-band fallback — it needs its own differential
     # coverage, not just the pallas trace variant's
     import os
 
     import numpy as np
 
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
-    from triple_accel_tpu.oracle.levenshtein import (
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
+    from triple_accel_jax.oracle.levenshtein import (
         levenshtein_naive_k_with_opts,
     )
-    from triple_accel_tpu.types import (
+    from triple_accel_jax.types import (
         EditCosts,
         LEVENSHTEIN_COSTS,
         RDAMERAU_COSTS,
@@ -332,7 +321,7 @@ def test_batched_traceback_scan_path_matches_oracle():
         a_list.append(rng.integers(0, 5, la).astype(np.uint8))
         b_list.append(rng.integers(0, 5, lb).astype(np.uint8))
 
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "scan"
+    os.environ["TRIPLE_ACCEL_FORCE_PATH"] = "scan"
     try:
         for costs in (LEVENSHTEIN_COSTS, RDAMERAU_COSTS,
                       EditCosts(3, 2, 4, 2)):
@@ -350,44 +339,28 @@ def test_batched_traceback_scan_path_matches_oracle():
                         assert dists[i] == ref[0], (i, k, costs)
                         assert traces[i] == ref[1], (i, k, costs)
     finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
+        del os.environ["TRIPLE_ACCEL_FORCE_PATH"]
 
 
 @pytest.mark.parametrize("costs", [
     LEVENSHTEIN_COSTS, RDAMERAU_COSTS,
     EditCosts(2, 1, 2, None), EditCosts(3, 2, 1, 2),
 ])
-def test_flat_distance_matches_oracle(costs):
-    """The full-matrix flat DISTANCE kernel (the wide-band replacement for
-    the lax.scan cliff, VERDICT r3 #5): exact for every cost model at
-    mixed lengths incl. empties, across both chunk axes (small rj/ti force
-    multi-chunk edge carries)."""
-    from triple_accel_tpu.ops.pallas.search_flat import flat_distance
-
-    ct = (costs.mismatch_cost, costs.gap_cost, costs.start_gap_cost,
-          costs.transpose_cost_or_zero, costs.allow_transpose)
+def test_full_band_scan_matches_oracle(costs):
+    """A band as wide as the longest string makes the scan exact for any
+    pair: every cost model at mixed lengths incl. empties (the cases of
+    the removed full-matrix flat distance kernel)."""
+    ct = _costs_t(costs)
     rng = np.random.default_rng(hash(ct) % 2**31)
-    rj, ti = 64, 16
     C, m_max, n_max = 128, 40, 90
-    a_rows = np.zeros((C, m_max), np.uint8)
-    b_rows = np.zeros((C, n_max), np.uint8)
-    m = np.zeros(C, np.int32)
-    n = np.zeros(C, np.int32)
     pairs = []
-    for i in range(C):
+    for _ in range(C):
         la = int(rng.integers(0, m_max + 1))
         lb = int(rng.integers(0, n_max + 1))
         a = rng.integers(65, 70, la).astype(np.uint8)
         b = rng.integers(65, 70, lb).astype(np.uint8)
-        a_rows[i, :la] = a
-        b_rows[i, :lb] = b
-        m[i], n[i] = la, lb
-        pairs.append((a, b))
-    d = np.asarray(flat_distance(
-        b_rows, a_rows, m, n,
-        n_jchunks=-(-n_max // rj), n_ichunks=-(-m_max // ti),
-        costs_t=ct, interpret=True, rj=rj, ti=ti,
-    ))
+        pairs.append((a, b) if la <= lb else (b, a))
+    d = _scan([p[0] for p in pairs], [p[1] for p in pairs], 128, 128, ct)
     for i, (a, b) in enumerate(pairs):
         ref = levenshtein_naive_with_opts(a, b, False, costs)[0]
         assert int(d[i]) == ref, (i, len(a), len(b), costs)
@@ -396,26 +369,14 @@ def test_flat_distance_matches_oracle(costs):
 @pytest.mark.parametrize("costs", [LEVENSHTEIN_COSTS,
                                    EditCosts(2, 1, 2, None),
                                    EditCosts(1, 1, 0, 1)])
-@pytest.mark.slowcompile
-def test_flat_distance_banded_matches_oracle(costs):
-    """BANDED column-strip flat distance (VERDICT r4 #6): with unit_k
-    set, each column launch processes only the band's TI-tiles behind a
-    rolling edge window.  Small rj/ti at 600-char pairs force bt << nic
-    (9 vs 38 tiles) and many window slides; results must equal the
-    unbanded kernel and the oracle for every within-threshold pair, and
-    saturate above the threshold for distant pairs."""
-    from triple_accel_tpu.ops.pallas.search_flat import flat_distance
-
-    ct = (costs.mismatch_cost, costs.gap_cost, costs.start_gap_cost,
-          costs.transpose_cost_or_zero, costs.allow_transpose)
+def test_banded_scan_long_pairs_matches_oracle(costs):
+    """600-char pairs at unit_k=32 (the cases of the removed banded flat
+    distance kernel): exact for every within-threshold pair, never below
+    the truth for distant pairs."""
+    ct = _costs_t(costs)
     rng = np.random.default_rng(hash(ct) % 2**31 + 5)
-    rj, ti = 64, 16
     uk = 32
     C, L = 128, 600
-    a_rows = np.zeros((C, L), np.uint8)
-    b_rows = np.zeros((C, L), np.uint8)
-    m = np.zeros(C, np.int32)
-    n = np.zeros(C, np.int32)
     pairs = []
     for i in range(C):
         la = int(rng.integers(L - 40, L - 10))  # headroom for insertions
@@ -434,140 +395,49 @@ def test_flat_distance_banded_matches_oracle(costs):
                     b.insert(int(rng.integers(0, len(b) + 1)),
                              int(rng.integers(65, 70)))
             b = np.array(b, np.uint8)
-        a_rows[i, :la] = a
-        b_rows[i, :len(b)] = b
-        m[i], n[i] = la, len(b)
-        pairs.append((a, b))
-    kw = dict(n_jchunks=-(-L // rj), n_ichunks=-(-L // ti),
-              costs_t=ct, interpret=True, rj=rj, ti=ti)
-    d_banded = np.asarray(flat_distance(b_rows, a_rows, m, n,
-                                        unit_k=uk, **kw))
-    d_full = np.asarray(flat_distance(b_rows, a_rows, m, n, **kw))
-    # the threshold the uk-band certifies: a path within it has at most
-    # uk gaps of either type (see _flat_beats_scan's derivation)
+        pairs.append((a, b) if len(a) <= len(b) else (b, a))
+    d = _scan([p[0] for p in pairs], [p[1] for p in pairs], uk, 1024, ct)
+    # a path within the band has at most uk gaps of either type
     thresh = uk * costs.gap_cost + costs.start_gap_cost
     checked_exact = checked_sat = 0
     for i, (a, b) in enumerate(pairs):
         ref = levenshtein_naive_with_opts(a, b, False, costs)[0]
-        if ref <= thresh:
-            assert int(d_banded[i]) == ref == int(d_full[i]), (i, costs)
+        if ref <= thresh and len(b) - len(a) <= uk:
+            assert int(d[i]) == ref, (i, costs)
             checked_exact += 1
         else:
-            assert int(d_banded[i]) >= ref, (i, costs)
+            assert int(d[i]) >= ref, (i, costs)
             checked_sat += 1
     assert checked_exact >= 64 and checked_sat >= 4
 
 
-def test_flat_distance_dispatch_wide_band():
-    """When band_vmem_plan returns None for non-unit costs and the engine
-    guard picks the full matrix, the dispatcher must route through
-    flat_distance (not the scan) and stay exact.  The guard itself is
-    forced True here (its time model is chip-calibrated and would send
-    this deliberately tiny test batch to the scan — the guard's own
-    behavior is pinned by test_flat_guard_falls_to_scan)."""
-    import importlib
-    import os
-    from unittest import mock
-
-    lb_mod = importlib.import_module(
-        "triple_accel_tpu.ops.pallas.lev_band")
-    # NB: `import triple_accel_tpu.levenshtein as m` resolves to the
-    # re-exported FUNCTION of the same name on py3.12; go via importlib
-    lev_mod = importlib.import_module("triple_accel_tpu.levenshtein")
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
+@pytest.mark.parametrize("costs,k,length,path", [
+    (EditCosts(2, 1, 2, None), 150, 60, "scan"),
+    (RDAMERAU_COSTS, 20, 60, "scan"),
+    (LEVENSHTEIN_COSTS, 300, 400, "scan"),
+    (LEVENSHTEIN_COSTS, 20, 60, "myers"),
+])
+def test_kernel_dispatch_by_costs_and_band(costs, k, length, path):
+    """With the kernel arms on, only unit costs whose band fits the
+    word limit take the bit-parallel kernel; everything else runs the
+    scan, and both stay exact."""
+    from triple_accel_jax.dispatch import dispatch_history, interpret_kernels
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
 
     rng = np.random.default_rng(12)
-    costs = EditCosts(2, 1, 2, None)
     a_list, b_list = [], []
     for _ in range(8):
-        a_list.append(rng.integers(65, 70,
-                                   int(rng.integers(0, 100))).astype(np.uint8))
+        la = int(rng.integers(length - 60, length))
+        a_list.append(rng.integers(65, 70, la).astype(np.uint8))
         b_list.append(rng.integers(65, 70,
-                                   int(rng.integers(0, 130))).astype(np.uint8))
-    with mock.patch.object(lb_mod, "band_vmem_plan",
-                           lambda max_m, unit_k: None), \
-         mock.patch.object(lev_mod, "_flat_beats_scan",
-                           lambda *a, **kw: True):
+                                   la + int(rng.integers(0, 10))).astype(np.uint8))
+    with interpret_kernels():
         dispatch_history(clear=True)
-        os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-        try:
-            got = levenshtein_k_batch(a_list, b_list, 150, costs)
-        finally:
-            del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
+        got = levenshtein_k_batch(a_list, b_list, k, costs)
         paths = [d.path for _, d in dispatch_history()]
-    assert "flat_distance" in paths, paths
+    assert paths == [path], paths
     for i in range(8):
-        ref = levenshtein_naive_k_with_opts(a_list[i], b_list[i], 150,
-                                            False, costs)
-        exp = -1 if ref is None else ref[0]
-        assert int(got[i]) == exp, i
-
-
-def test_flat_guard_falls_to_scan():
-    """The flat_distance engine guard (VERDICT r4 weak #5): a batch whose
-    banded scan time model is far cheaper than the full matrix — here a
-    tiny B=8 batch whose flat program would be >99% lane/tile padding —
-    must fall through to the banded scan, logged as scan_wide_band, and
-    stay exact.  Also pins the guard's pure math at the documented
-    extremes."""
-    import importlib
-    import os
-    from unittest import mock
-
-    lb_mod = importlib.import_module(
-        "triple_accel_tpu.ops.pallas.lev_band")
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import (
-        _FLAT_CELLS_CAP,
-        _flat_beats_scan,
-        levenshtein_k_batch,
-    )
-
-    # guard math at the extremes (banded-flat model, re-calibrated on
-    # chip round 5 — benches/banded_flat_calibrate.py): a pathological
-    # long-pair batch still exceeds the absolute cells cap even banded
-    # (200K-char pairs at uk=2048 -> 2.8e11 banded cells); the MEASURED
-    # scan winner (B=128 x 10K chars at uk=2048: scan 266 ms vs flat
-    # 346 ms on chip) must pick scan...
-    long_pair = [np.zeros(200_000, np.uint8)] * 2
-    assert not _flat_beats_scan(2, long_pair, long_pair, 2048, 262144)
-    scan_win = [np.zeros(10_000, np.uint8)] * 128
-    assert not _flat_beats_scan(128, scan_win, scan_win, 2048, 10240)
-    # ...while the benched 4000x4000 full-band batch stays on flat, the
-    # MEASURED flat winner (B=512 x 20K at uk=2048: flat 1.30 s vs scan
-    # 2.00 s on chip — the scan's saturation regime) picks flat, and a
-    # long-pair modest-band batch wins on flat thanks to the banded
-    # column-strip tiling (O((m+n)*band) cells, VERDICT r4 #6)
-    wide = [np.zeros(4000, np.uint8)] * 256
-    assert _flat_beats_scan(256, wide, wide, 4096, 4096)
-    assert 256 * 4096 * 4096 < _FLAT_CELLS_CAP
-    flat_win = [np.zeros(20_000, np.uint8)] * 512
-    assert _flat_beats_scan(512, flat_win, flat_win, 2048, 20224)
-    banded_win = [np.zeros(100_000, np.uint8)] * 8
-    assert _flat_beats_scan(8, banded_win, banded_win, 512, 100352)
-
-    rng = np.random.default_rng(12)
-    costs = EditCosts(2, 1, 2, None)
-    a_list, b_list = [], []
-    for _ in range(8):
-        a_list.append(rng.integers(65, 70,
-                                   int(rng.integers(0, 50))).astype(np.uint8))
-        b_list.append(rng.integers(65, 70,
-                                   int(rng.integers(0, 60))).astype(np.uint8))
-    with mock.patch.object(lb_mod, "band_vmem_plan",
-                           lambda max_m, unit_k: None):
-        dispatch_history(clear=True)
-        os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-        try:
-            got = levenshtein_k_batch(a_list, b_list, 150, costs)
-        finally:
-            del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
-        paths = [d.path for _, d in dispatch_history()]
-    assert "scan_wide_band" in paths, paths
-    assert "flat_distance" not in paths, paths
-    for i in range(8):
-        ref = levenshtein_naive_k_with_opts(a_list[i], b_list[i], 150,
+        ref = levenshtein_naive_k_with_opts(a_list[i], b_list[i], k,
                                             False, costs)
         exp = -1 if ref is None else ref[0]
         assert int(got[i]) == exp, i
@@ -580,8 +450,8 @@ def test_trace_batch_chunks_on_batch_axis():
     identical results to one chunk."""
     import importlib
 
-    lev = importlib.import_module("triple_accel_tpu.levenshtein")
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
+    lev = importlib.import_module("triple_accel_jax.levenshtein")
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
 
     rng = np.random.default_rng(21)
     a_list, b_list = [], []
@@ -601,7 +471,7 @@ def test_trace_batch_chunks_on_batch_axis():
         a_list.append(a)
         b_list.append(np.asarray(b, np.uint8))
     import os
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "scan"
+    os.environ["TRIPLE_ACCEL_FORCE_PATH"] = "scan"
     try:
         ref = levenshtein_k_batch(a_list, b_list, 30, trace_on=True)
         saved = lev._TRACE_CELLS_CAP
@@ -611,6 +481,6 @@ def test_trace_batch_chunks_on_batch_axis():
         finally:
             lev._TRACE_CELLS_CAP = saved
     finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
+        del os.environ["TRIPLE_ACCEL_FORCE_PATH"]
     assert np.array_equal(got[0], ref[0])
     assert got[1] == ref[1]

@@ -1,10 +1,14 @@
-"""Bit-parallel Myers kernel conformance (interpret mode on the CPU mesh).
+"""Bit-parallel Myers engines (ops/pallas/): the Triton kernels in Pallas
+interpret mode and their plain-XLA twins, differentially against the
+scalar oracle.
 
-The kernel encodes the boundary conventions validated by the bigint
-prototypes (see ops/pallas/lev_myers.py docstring): asymmetric k+1 band,
-+1 shifted-in out-of-band deltas, forced virtual-column deltas, left-edge
-anchor scoring.  These tests differentially check every (NW, SG, G) plan
-shape against the scalar oracle, plus the dispatcher integration.
+The distance kernel encodes the boundary conventions in the
+ops/pallas/myers_distance.py docstring (asymmetric k+1 band, +1
+shifted-in out-of-band deltas, forced virtual-column deltas, left-edge
+anchor scoring); the search kernel the column recurrence, its rdamerau
+seed term and the anchored row-0 boundary.  The cases cover one word and
+the word limits, NUL bytes, multi-needle launches,
+the device-side windowing and the dispatcher integration.
 """
 
 import os
@@ -12,27 +16,70 @@ import os
 import numpy as np
 import pytest
 
-from triple_accel_tpu.oracle import levenshtein_naive_k_with_opts
-from triple_accel_tpu.ops.pallas.lev_myers import (
-    myers_distance_pallas,
-    myers_plan,
+from triple_accel_jax.oracle import (
+    levenshtein_naive_k_with_opts,
+    levenshtein_search_naive_with_opts,
+)
+from triple_accel_jax.ops.pallas import words as W
+from triple_accel_jax.ops.pallas.myers_distance import (
+    distance_plan,
+    myers_distance_jnp,
+    myers_distance_triton,
     prepare_myers_inputs,
 )
+from triple_accel_jax.ops.pallas.myers_search import (
+    BLOCK,
+    MAX_WORDS,
+    UNROLL,
+    chunk_raw,
+    device_pack_segs,
+    device_windows,
+    myers_search,
+    myers_search_jnp,
+    prepare_peq,
+    search_halo,
+    search_own_len,
+    search_plan,
+    seg_count,
+)
+from triple_accel_jax.types import LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType
 
 
-def _mutated_corpus(rng, n_pairs, max_m, k):
+def _kernel(*args, **kw):
+    return np.asarray(myers_distance_triton(*args, interpret=True, **kw))
+
+
+class _forced:
+    """Force the kernel arms (interpret mode on the CPU) for the block."""
+
+    def __init__(self, path="pallas"):
+        self.path = path
+
+    def __enter__(self):
+        from triple_accel_jax.dispatch import interpret_kernels
+
+        os.environ["TRIPLE_ACCEL_FORCE_PATH"] = self.path
+        self.sw = interpret_kernels()
+        self.sw.__enter__()
+
+    def __exit__(self, *exc):
+        self.sw.__exit__(*exc)
+        del os.environ["TRIPLE_ACCEL_FORCE_PATH"]
+
+
+def _mutated_corpus(rng, n_pairs, max_m, k, alphabet=(65, 70)):
     a_list, b_list, exp = [], [], []
     while len(a_list) < n_pairs:
         m = int(rng.integers(0, max_m))
-        a = rng.integers(65, 70, m).astype(np.uint8)
+        a = rng.integers(*alphabet, m).astype(np.uint8)
         b = list(a)
         for _ in range(int(rng.integers(0, 10))):
             op = rng.integers(0, 3)
             if op == 0 and b:
-                b[rng.integers(0, len(b))] = rng.integers(65, 70)
+                b[rng.integers(0, len(b))] = rng.integers(*alphabet)
             elif op == 1 and len(b) < max_m - 1:
                 b.insert(int(rng.integers(0, len(b) + 1)),
-                         int(rng.integers(65, 70)))
+                         int(rng.integers(*alphabet)))
             elif op == 2 and b:
                 del b[rng.integers(0, len(b))]
         b = np.array(b, dtype=np.uint8)
@@ -48,18 +95,16 @@ def _mutated_corpus(rng, n_pairs, max_m, k):
 
 @pytest.mark.parametrize(
     "k,max_m",
-    [(4, 16), (16, 48), (32, 64), (48, 64), (96, 48), (159, 32)],
+    [(4, 16), (16, 48), (31, 64), (32, 64), (96, 48), (127, 32)],
 )
 def test_myers_kernel_matches_oracle(k, max_m):
-    """Covers every grouping plan: G=8 (NW=1), G=4 (NW=2), G=2 (NW 3-4),
-    G=1 (NW 5-8)."""
-    assert myers_plan(k) is not None
+    """One word (k+1 <= 32), the first two-word band (k = 32), and the
+    word limit (k = 127: four words)."""
+    assert distance_plan(k) is not None
     rng = np.random.default_rng(100 + k)
     a_list, b_list, exp = _mutated_corpus(rng, 60, max_m, k)
-    *args, decode = prepare_myers_inputs(a_list, b_list, k, max_m)
-    dist = decode(
-        myers_distance_pallas(*args, k=k, max_m=max_m, interpret=True)
-    )
+    args = prepare_myers_inputs(a_list, b_list, k, max_m)
+    dist = _kernel(*args, k=k, max_m=max_m)
     for p, e in enumerate(exp):
         got = int(dist[p])
         if e <= k:
@@ -68,56 +113,34 @@ def test_myers_kernel_matches_oracle(k, max_m):
             assert got > k, f"pair {p}: false accept {got} <= {k} < {e}"
 
 
-@pytest.mark.parametrize("chains,k,max_m,B", [
-    # chains=2 across the G = 8 / 4 / 1 packing regimes; one chains=4
-    # case at a small body (the CH=4 interpret compile is minutes-slow,
-    # and the G regimes share the chain plumbing)
-    (2, 8, 64, 8192), (2, 32, 64, 4096), (2, 130, 48, 1024),
-    (4, 8, 16, 8192), (1, 32, 64, 4096),
-])
-@pytest.mark.slowcompile
-def test_myers_packed_prepack_and_chains(k, max_m, B, chains):
-    """The packed int32 layout (myers_device_pack; bench.py hoists it out
-    of its timed loop) fed back to the wrapper must be bit-identical to
-    the raw uint8 arrival path, for chains = 1/2/4 across the G = 8/4/1
-    packing regimes — strings include NUL bytes, the case where a pad
-    byte CAN equal a real char (the kernel's virtual-column Eq masking
-    and the rightward-only contamination argument carry correctness)."""
-    from triple_accel_tpu.ops.pallas.lev_myers import myers_device_pack
-
+@pytest.mark.parametrize("k,max_m", [(8, 32), (32, 64), (120, 48)])
+def test_myers_nul_bytes_engines_agree(k, max_m):
+    """Strings full of NUL bytes (pads are 0 too, so a pad CAN equal a real
+    char: the virtual-column Eq masking and the rightward-only
+    contamination argument carry correctness): the kernel and the
+    plain-XLA twin are bit-identical, and exact vs the oracle."""
     rng = np.random.default_rng(77 + k)
-    a_list, b_list = [], []
-    for _ in range(B):
-        la = int(rng.integers(1, max_m))
-        x = rng.integers(0, 256, la).astype(np.uint8)
-        x[rng.integers(0, la, 2)] = 0  # NULs: pads are 0 too
-        y = x.copy()
-        if la > 3:
-            y[rng.integers(0, la, min(3, k))] = 1
-        a_list.append(x)
-        b_list.append(y)
-    *args, decode = prepare_myers_inputs(a_list, b_list, k, max_m)
-    d1 = decode(myers_distance_pallas(*args, k=k, max_m=max_m,
-                                      interpret=True))
-    packed = myers_device_pack(*args, k=k, max_m=max_m, chains=chains)
-    d2 = decode(myers_distance_pallas(*packed, k=k, max_m=max_m,
-                                      interpret=True, chains=chains))
+    a_list, b_list, exp = _mutated_corpus(rng, 40, max_m, k, alphabet=(0, 3))
+    args = prepare_myers_inputs(a_list, b_list, k, max_m)
+    d1 = _kernel(*args, k=k, max_m=max_m)
+    d2 = np.asarray(myers_distance_jnp(*args, k=k, max_m=max_m))
     assert np.array_equal(d1, d2)
-    # raw uint8 arrival with the same chain count must also agree
-    d3 = decode(myers_distance_pallas(*args, k=k, max_m=max_m,
-                                      interpret=True, chains=chains))
-    assert np.array_equal(d1, d3)
+    for p, e in enumerate(exp):
+        assert (int(d1[p]) == e) if e <= k else (int(d1[p]) > k), p
 
 
 def test_myers_plan_limits():
-    assert myers_plan(19) == (1, 1, 8, 20)
-    assert myers_plan(32) == (2, 2, 4, 40)
-    assert myers_plan(79) == (4, 4, 2, 80)
-    assert myers_plan(159) == (8, 8, 1, 160)
-    assert myers_plan(160) is None  # falls back to the general band kernel
+    assert distance_plan(0) == (1, 1, 1)
+    assert distance_plan(31) == (1, 32, 9)
+    assert distance_plan(32) == (2, 33, 9)
+    assert distance_plan(127) == (4, 128, 33)
+    assert distance_plan(128) is None  # past the word limit: scan
+    assert search_plan(0) is None
+    assert search_plan(1) == 1
+    assert search_plan(256) == MAX_WORDS == 8
+    assert search_plan(257) is None
 
 
-@pytest.mark.slowcompile
 def test_myers_empty_and_edge_pairs():
     cases = [
         (b"", b""),
@@ -134,18 +157,96 @@ def test_myers_empty_and_edge_pairs():
         levenshtein_naive_k_with_opts(a, b, 10**9, False)[0]
         for a, b in zip(a_list, b_list)
     ]
-    *args, decode = prepare_myers_inputs(a_list, b_list, k, max_m)
-    dist = decode(
-        myers_distance_pallas(*args, k=k, max_m=max_m, interpret=True)
-    )
+    args = prepare_myers_inputs(a_list, b_list, k, max_m)
+    dist = _kernel(*args, k=k, max_m=max_m)
     for p, e in enumerate(exp):
         assert int(dist[p]) == e, (cases[p], int(dist[p]), e)
 
 
-def test_dispatch_myers_equals_band_kernel():
-    """levenshtein_k_batch: the myers path (default for unit costs under
-    pallas) must equal the forced general band kernel result."""
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
+@pytest.mark.parametrize("B,lanes", [(1, 128), (300, 128), (513, 512)])
+def test_prepare_myers_inputs_padding(B, lanes):
+    """A ragged batch pads with empty pairs to a multiple of `lanes`, each
+    pair's b sitting ukL = (k - delta)//2 columns right in its buffer; a
+    rectangular batch uploads its rows as they are, with the common ukL as
+    b_shift.  Both layouts give the same distances."""
+    rng = np.random.default_rng(B)
+    k, max_m = 16, 32
+    a_list = [rng.integers(1, 9, int(rng.integers(0, 20))).astype(np.uint8)
+              for _ in range(B)]
+    b_list = [np.concatenate([a, np.full(int(rng.integers(0, 5)), 9,
+                                         np.uint8)]) for a in a_list]
+    a_rows, b_rows, m, dlen, ukl, shift = prepare_myers_inputs(
+        a_list, b_list, k, max_m, lanes=lanes)
+    Bp = -(-B // lanes) * lanes
+    assert m.shape == (Bp,) and b_rows.shape[0] == Bp
+    assert np.all(m[B:] == 0) and np.all(a_rows[B:] == 0)
+    if B > 1:  # ragged: full buffers
+        assert shift == 0 and a_rows.shape == (Bp, max_m)
+        assert b_rows.shape[1] % 4 == 0
+    for p in range(B):
+        d = len(b_list[p]) - len(a_list[p])
+        assert m[p] == len(a_list[p]) and dlen[p] == d
+        assert ukl[p] == (k - d) // 2
+        # one pair is a rectangular batch: its b is uploaded unshifted
+        u = 0 if B == 1 else int(ukl[p])
+        assert B > 1 or shift == ukl[p]
+        assert np.array_equal(b_rows[p, u:u + len(b_list[p])], b_list[p])
+        assert not b_rows[p, :u].any()
+    # rectangular: rows uploaded unpadded, b_shift carries the common ukL
+    A = rng.integers(1, 9, (B, 24)).astype(np.uint8)
+    Bm = A.copy()
+    Bm[:, 5] = 0
+    ra, rb, rm, rd, ru, rs = prepare_myers_inputs(A, Bm, k, max_m,
+                                                  lanes=lanes)
+    assert ra.shape == (Bp, 24) and rb.shape == (Bp, 24) and rs == k // 2
+    assert np.array_equal(ra[:B], A) and np.array_equal(rb[:B], Bm)
+    got = _kernel(ra, rb, rm, rd, ru, rs, k=k, max_m=max_m)
+    for p in range(0, B, 37):
+        assert got[p] == levenshtein_naive_k_with_opts(A[p], Bm[p], k)[0], p
+
+
+@pytest.mark.parametrize("nw", [1, 3, 8])
+def test_words_arithmetic_matches_bigints(nw):
+    """The multi-word helpers against Python integers."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(nw)
+    nb = nw * W.WORD
+    mask = (1 << nb) - 1
+    xs = [int(v) for v in rng.integers(0, 1 << 62, 6)]
+    xs = [(v * 0x9E3779B97F4A7C15 ** nw) & mask for v in xs] + [mask, 0]
+    ys = list(reversed(xs))
+
+    def split(vals):
+        return [jnp.asarray([(v >> (W.WORD * w)) & 0xFFFFFFFF for v in vals],
+                            jnp.uint32) for w in range(nw)]
+
+    def join(words):
+        arr = [np.asarray(w).astype(object) for w in words]
+        return [sum(int(arr[w][i]) << (W.WORD * w) for w in range(nw))
+                for i in range(len(xs))]
+
+    X, Y = split(xs), split(ys)
+    assert join(W.add(X, Y)) == [(x + y) & mask for x, y in zip(xs, ys)]
+    assert join(W.shl1(X, 1)) == [((x << 1) | 1) & mask for x in xs]
+    assert join(W.shr1(X, 1)) == [(x >> 1) | (1 << (nb - 1)) for x in xs]
+    assert np.asarray(W.popcount(X)).tolist() == [bin(x).count("1")
+                                                  for x in xs]
+    bits = jnp.asarray([0, 1, 31, 32, nb - 1, nb, nb + 5, 7], jnp.int32)
+    assert join(W.low_mask(bits, nw)) == [
+        (1 << min(int(b), nb)) - 1 for b in np.asarray(bits)]
+    word = jnp.asarray([0x00FF0000, 0x01020304, 0, 0xFFFFFFFF, 0x00000100,
+                        0x80008000, 0x7F7F7F7F, 0x01000001], jnp.uint32)
+    exp = [sum(1 << s for s in range(4) if ((int(v) >> (8 * s)) & 0xFF) == 0)
+           for v in np.asarray(word)]
+    assert np.asarray(W.zero_byte_nibble(word)).tolist() == exp
+
+
+def test_dispatch_myers_equals_scan():
+    """levenshtein_k_batch: the myers path (unit costs with the kernel arms
+    on) must equal the scan wavefront's result."""
+    from triple_accel_jax.dispatch import last_dispatch
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
 
     rng = np.random.default_rng(0)
     a_list, b_list = [], []
@@ -160,95 +261,84 @@ def test_dispatch_myers_equals_band_kernel():
         a_list.append(a)
         b_list.append(b)
 
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    with _forced():
         got = levenshtein_k_batch(a_list, b_list, 12)
-    finally:
-        os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas_band"
-    try:
+        assert last_dispatch().path == "myers"
+    with _forced("scan"):
         ref = levenshtein_k_batch(a_list, b_list, 12)
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
+        assert last_dispatch().path == "scan"
     assert got.tolist() == ref.tolist()
 
 
 # ---------------------------------------------------------------------------
-# Bit-parallel search kernel (ops/pallas/search_myers.py)
+# Bit-parallel search kernel (ops/pallas/myers_search.py)
 # ---------------------------------------------------------------------------
 
-def _stitched_search_dists(needle, hay, k, interpret=True):
-    from triple_accel_tpu.ops.pallas.search_myers import (
-        myers_search_pallas,
-        myers_search_plan,
-        prepare_myers_search_inputs,
-    )
-    from triple_accel_tpu.ops.search_scan import chunk_haystack, window_span
+def _search_end_dists(needles, hay, k, *, anchored=False, damerau=False,
+                      own=None):
+    """Per-needle D[m][t] for every haystack end position t, stitched from
+    the owned ranges of the kernel's segments."""
+    from triple_accel_jax.ops.search_scan import window_span
 
-    m, n = len(needle), len(hay)
-    halo = min(window_span(m, k, 1, 0), n)
-    own = 64
-    seg_pad, seg_n, seg_off, own_start, seg_len = chunk_haystack(
-        hay, m, halo, own
-    )
-    segs = seg_pad[:, m + 1 : m + 1 + seg_len]
-    nchar, seg_t, decode = prepare_myers_search_inputs(needle, segs)
-    width = seg_t.shape[0] // myers_search_plan(m)[2]
-    out = myers_search_pallas(
-        nchar, seg_t, needle_len=m, width=width, seg_len=seg_len,
-        anchored=False, interpret=interpret,
-    )
-    dist_seg = decode(out, seg_len)
-    dists = np.full(n + 1, 1 << 30, dtype=np.int64)
-    for c in range(dist_seg.shape[0]):
-        o, s0 = int(own_start[c]), int(seg_off[c])
-        lo = o - s0
-        hi = min(int(seg_n[c]), lo + own)
-        if c == 0:
-            dists[0] = dist_seg[0, 0]
-        g0, g1 = s0 + lo + 1, min(s0 + hi, n)
-        if g1 >= g0:
-            dists[g0 : g1 + 1] = dist_seg[c, lo + 1 : lo + 1 + (g1 - g0 + 1)]
-    return dists
+    m, n = len(needles[0]), len(hay)
+    if anchored:
+        halo, own = 0, -(-max(n, 1) // 128) * 128
+    else:
+        halo = search_halo(min(window_span(m, k, 1, 0), n), n)
+        own = own or search_own_len(n, halo)
+    num = seg_count(n, own)
+    seg_t = device_pack_segs(hay, halo=halo, own_len=own, num=num)
+    out = np.asarray(myers_search(
+        prepare_peq(needles, m), seg_t, needle_len=m, seg_len=halo + own,
+        anchored=anchored, damerau=damerau, interpret=True,
+    ))
+    OUT = halo + own + 1
+    res = []
+    for i in range(len(needles)):
+        d = np.empty(n + 1, np.int64)
+        d[0] = out[i * OUT + halo, 0]
+        for gpos in range(1, n + 1):
+            c = (gpos - 1) // own
+            d[gpos] = out[i * OUT + gpos - c * own + halo, c]
+        res.append(d)
+    return res
 
 
-@pytest.mark.parametrize("m_lo,m_hi", [(1, 20), (21, 40), (41, 100)])
+def _oracle_end_dists(needle, hay, k, costs=LEVENSHTEIN_COSTS,
+                      anchored=False):
+    by_end = {
+        mt.end: mt.k
+        for mt in levenshtein_search_naive_with_opts(
+            needle, hay, k, SearchType.All, costs, anchored
+        )
+    }
+    return by_end
+
+
+@pytest.mark.parametrize("m_lo,m_hi", [(1, 20), (21, 64), (65, 256)])
 def test_myers_search_distances_match_oracle(m_lo, m_hi):
-    from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
-    from triple_accel_tpu.types import LEVENSHTEIN_COSTS, SearchType
-
     rng = np.random.default_rng(m_lo)
-    for _ in range(6):
+    for _ in range(4):
         m = int(rng.integers(m_lo, m_hi + 1))
         n = int(rng.integers(0, 300))
         needle = rng.integers(65, 69, m).astype(np.uint8)
         hay = rng.integers(65, 69, n).astype(np.uint8)
         k = m  # every end position emitted by the oracle
-        dists = _stitched_search_dists(needle, hay, k)
-        by_end = {
-            mt.end: mt.k
-            for mt in levenshtein_search_naive_with_opts(
-                needle, hay, k, SearchType.All, LEVENSHTEIN_COSTS, False
-            )
-        }
-        for j in range(n + 1):
-            exp = by_end.get(j)
-            if exp is not None:
-                assert dists[j] == exp, (m, n, j, dists[j], exp)
+        dists = _search_end_dists([needle], hay, k, own=128)[0]
+        for j, exp in _oracle_end_dists(needle, hay, k).items():
+            assert dists[j] == exp, (m, n, j, dists[j], exp)
 
 
 @pytest.mark.parametrize("search_type_name", ["Best", "All"])
 def test_myers_search_public_api_matches_oracle(search_type_name):
     """levenshtein_search_simd_with_opts routed through the Myers search
-    kernel (forced pallas on CPU = interpret mode) must equal the oracle,
-    including the maximize-length tie-break recovered per hit."""
-    from triple_accel_tpu.levenshtein import levenshtein_search_simd_with_opts
-    from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
-    from triple_accel_tpu.types import LEVENSHTEIN_COSTS, SearchType
+    kernel must equal the oracle, including the maximize-length
+    tie-break recovered per hit."""
+    from triple_accel_jax.levenshtein import levenshtein_search_simd_with_opts
 
     st = SearchType[search_type_name]
     rng = np.random.default_rng(7)
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    with _forced():
         for trial in range(12):
             m = int(rng.integers(1, 24))
             n = int(rng.integers(0, 220))
@@ -265,166 +355,73 @@ def test_myers_search_public_api_matches_oracle(search_type_name):
                 needle, hay, k, st, LEVENSHTEIN_COSTS, False
             )
             assert got == exp, (trial, m, n, k, got[:5], exp[:5])
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
 
 
-@pytest.mark.parametrize("tiled", [False, True])
-@pytest.mark.parametrize("m", [9, 24, 50, 200])  # SG = 1, 2, 4; G = 1
-def test_search_raw_packed_layout_and_sentinels(m, tiled):
-    """The raw packed-step layout invariants consumers rely on: row
-    (t//SP)*8 + u*SP + (t%SP) holds D[m][t], and every row for t > seg_len
-    carries the 2^30 sentinel (so device-side min/count reductions never
-    need a slice).  Both store schemes must emit the identical layout —
-    the tiled path only runs compiled on chip, so it is forced here."""
-    from triple_accel_tpu.ops.pallas.search_myers import (
-        myers_search_pallas,
-        myers_search_plan,
-        prepare_myers_search_inputs,
-    )
-    from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
-    from triple_accel_tpu.types import (
-        LEVENSHTEIN_COSTS,
-        RDAMERAU_COSTS,
-        SearchType,
-    )
-
+@pytest.mark.parametrize("damerau", [False, True])
+@pytest.mark.parametrize("m", [9, 24, 50, 200])  # 1, 1, 2 and 7 words
+def test_search_output_layout(m, damerau):
+    """The raw output layout consumers rely on: row n*OUT + t, column c
+    holds D[m][t] of needle n over segment c (t in [0, seg_len]), for a
+    two-needle launch; the kernel and its plain-XLA twin agree bit for
+    bit."""
     rng = np.random.default_rng(m)
-    seg_len = 21  # OUT = 24 > seg_len + 1: sentinel rows exist
-    segs = rng.integers(65, 69, (3, seg_len)).astype(np.uint8)
-    needle = rng.integers(65, 69, m).astype(np.uint8)
-    nchar, seg_t, _ = prepare_myers_search_inputs(needle, segs)
-    G = myers_search_plan(m)[2]
-    SP = 8 // G
-    width = seg_t.shape[0] // G
-    damerau = m == 24  # one damerau case per scheme
+    seg_len, C = 24, 3
+    segs = rng.integers(65, 69, (C, seg_len)).astype(np.uint8)
+    needles = [rng.integers(65, 69, m).astype(np.uint8) for _ in range(2)]
     costs = RDAMERAU_COSTS if damerau else LEVENSHTEIN_COSTS
-    out = np.asarray(myers_search_pallas(
-        nchar, seg_t, needle_len=m, width=width, seg_len=seg_len,
-        anchored=False, interpret=True, damerau=damerau, tiled=tiled,
-    ))
-    OUT = -(-(seg_len + 1) // 8) * 8
-    assert out.shape[0] == G * OUT
-    for c in range(3):
-        by_end = {
-            mt.end: mt.k
-            for mt in levenshtein_search_naive_with_opts(
-                needle, segs[c], m + seg_len, SearchType.All,
-                costs, False
-            )
-        }
-        g, u, lane = c // (G * 128), (c % (G * 128)) // 128, c % 128
-        for t in range(OUT):
-            r = (t // SP) * 8 + u * SP + (t % SP)
-            got = out[r, g * 128 + lane]
-            if t <= seg_len:
-                assert got == by_end[t], (c, t, got, by_end[t])
-            else:
-                assert got == 1 << 30, (c, t, got)
+    seg_t = np.zeros((seg_len, BLOCK), np.uint8)
+    seg_t[:, :C] = segs.T
+    peq = prepare_peq(needles, m)
+    kw = dict(needle_len=m, seg_len=seg_len, damerau=damerau)
+    out = np.asarray(myers_search(peq, seg_t, interpret=True, **kw))
+    twin = np.asarray(myers_search_jnp(peq, seg_t, **kw))
+    OUT = seg_len + 1
+    assert out.shape == (2 * OUT, BLOCK)
+    assert np.array_equal(out, twin)
+    for i, nd in enumerate(needles):
+        for c in range(C):
+            ref = _oracle_end_dists(nd, segs[c], m + seg_len, costs)
+            for t in range(OUT):
+                assert out[i * OUT + t, c] == ref[t], (i, c, t)
 
 
-@pytest.mark.parametrize("ch", [2])
-@pytest.mark.parametrize("tiled", [False, True])
-@pytest.mark.parametrize("m", [9, 24, 200])  # G = 8, 4, 1 regimes
-@pytest.mark.slowcompile
-def test_search_chained_matches_single_chain(m, tiled, ch):
-    """chains=2 (independent segment blocks advanced per grid step
-    with interleaved bit chains; the dispatcher picks up to 4 for big
-    haystacks) must be bit-identical to chains=1 on every real column
-    after decoding the raw CHAINED layout (chain c's packed-step band
-    holds original lane-block gb2*ch + c) — the chains share no state.
-    Covers all three packing regimes, both store schemes, and the
-    damerau + anchored variants; collect_hits' chains decode is checked
-    against the same remap.  ch=4 is interpret-excluded: its XLA CPU
-    compile segfaults deterministically when run after the full suite's
-    ~160 prior compiles (reproduced twice at the same test index;
-    standalone it passes) — the restack/decode logic is CH-generic, and
-    the COMPILED chains=4 kernel is chip-fuzzed at 0 mismatches
-    (benches/tpu_fuzz.py group 11)."""
-    from triple_accel_tpu.ops.pallas.search_myers import (
-        BLOCK,
-        collect_hits,
-        myers_search_pallas,
-        myers_search_plan,
-        prepare_myers_search_inputs,
-    )
-
-    rng = np.random.default_rng(m)
-    G = myers_search_plan(m)[2]
-    seg_len = 21
-    C0 = G * 384  # 3 lane-blocks -> BGc = 512, nbc = 2 grid steps
-    segs = rng.integers(65, 69, (C0, seg_len)).astype(np.uint8)
-    needle = rng.integers(65, 69, m).astype(np.uint8)
-    nchar, seg_t, _ = prepare_myers_search_inputs(needle, segs)
-    nchar2, seg_t2, _ = prepare_myers_search_inputs(needle, segs,
-                                                    chains=ch)
-    width = seg_t.shape[0] // G
-    assert seg_t2.shape[0] == ch * G * width
-    BG = seg_t.shape[1]
-    damerau = m == 24
-    anchored = m == 9
-    kw = dict(needle_len=m, width=width, seg_len=seg_len,
-              anchored=anchored, interpret=True, damerau=damerau,
-              tiled=tiled)
-    out1 = np.asarray(myers_search_pallas(nchar, seg_t, chains=1, **kw))
-    out2 = np.asarray(myers_search_pallas(nchar2, seg_t2, chains=ch,
-                                          **kw))
-    OUT = out1.shape[0] // G
-    nbc = out2.shape[1] // 128
-    # un-restack in numpy: chain band c holds original lane-block
-    # gb2*ch + c at columns gb2*128 + lane
-    dec = (
-        out2.reshape(ch, G * OUT, nbc, 128)
-        .transpose(1, 2, 0, 3)
-        .reshape(G * OUT, nbc * ch * 128)
-    )
-    np.testing.assert_array_equal(dec[:, :BG], out1)
-
-    # collect_hits must decode the chained layout to the same hit set
-    k = m  # every position is a hit
-    own = 16
-    halo = seg_len - own
-
-    def hits(out, chains):
-        R = out.shape[0]
-        pad = (-R) % BLOCK
-        dp = np.pad(out, ((0, pad), (0, 0)), constant_values=1 << 30)
-        mins = dp.reshape(-1, BLOCK, out.shape[1]).min(axis=1)
-        rb, cols = np.nonzero(mins <= k)
-        blocks = dp.reshape(-1, BLOCK, out.shape[1])[rb, :, cols]
-        _, gpos, d = collect_hits(
-            blocks, rb, cols, k, OUT=OUT, G=G, C=C0, halo=halo,
-            own_len=own, limit_pos=C0 * own, chains=chains,
-        )
-        return list(zip(gpos.tolist(), d.tolist()))
-
-    assert hits(out1, 1) == hits(out2, ch)
+@pytest.mark.parametrize("variant", ["plain", "damerau_anchored"])
+@pytest.mark.parametrize("m", [9, 24, 200])
+def test_search_multi_needle_grid_matches_single(m, variant):
+    """A launch over three needles (the grid's needle axis) must equal
+    three single-needle launches, and the oracle, on a multi-segment
+    haystack."""
+    damerau = anchored = variant == "damerau_anchored"
+    rng = np.random.default_rng(m + anchored)
+    needles = [rng.integers(0, 4, m).astype(np.uint8) for _ in range(3)]
+    hay = rng.integers(1, 4, 700).astype(np.uint8)
+    hay[300:300 + m] = needles[2][: 700 - 300]
+    k = 4
+    kw = dict(anchored=anchored, damerau=damerau, own=128)
+    many = _search_end_dists(needles, hay, k, **kw)
+    costs = RDAMERAU_COSTS if damerau else LEVENSHTEIN_COSTS
+    for i, nd in enumerate(needles):
+        one = _search_end_dists([nd], hay, k, **kw)[0]
+        assert np.array_equal(many[i], one), i
+        for j, exp in _oracle_end_dists(nd, hay, k, costs, anchored).items():
+            assert many[i][j] == exp, (i, j)
 
 
 @pytest.mark.parametrize(
-    "n,halo,own,G",
+    "n,halo,own",
     [
-        (100_000, 333, 896, 8),
-        (5_000, 1_050, 128, 4),  # halo > own: multi-block windows
-        (1, 5, 128, 1),
-        (70_000, 2_944, 2_944, 1),
-        (9_999, 0, 4_096, 2),  # anchored-style zero halo
+        (100_000, 352, 896),
+        (5_000, 1_056, 128),  # halo > own: multi-block windows
+        (1, 32, 128),
+        (70_000, 2_944, 2_944),
+        (9_999, 0, 4_096),  # anchored-style zero halo
     ],
 )
-def test_device_prep_matches_host(n, halo, own, G):
-    """device_windows + device_grouped_transpose (the on-device prep the
-    search dispatchers now feed the kernels from) must be byte-exact with
-    the host-side chunk_raw + prepare_myers_segs layouts."""
+def test_device_windows_match_chunk_raw(n, halo, own):
+    """device_windows (the on-device windowing every search feeds the
+    kernels from) is byte-exact with the host reference chunk_raw, and
+    device_pack_segs lays one segment per lane, lanes padded to BLOCK."""
     import jax.numpy as jnp
-
-    from triple_accel_tpu.ops.pallas.search_myers import (
-        _round_up,
-        chunk_raw,
-        device_grouped_transpose,
-        device_windows,
-        prepare_myers_segs,
-        seg_count,
-    )
 
     rng = np.random.default_rng(n + halo)
     hay = rng.integers(0, 256, n).astype(np.uint8)
@@ -432,43 +429,73 @@ def test_device_prep_matches_host(n, halo, own, G):
     assert num == seg_count(n, own)
     win = device_windows(jnp.asarray(hay), halo=halo, own_len=own, num=num)
     assert np.array_equal(np.asarray(win), np.asarray(segs))
-    width = _round_up(halo + own + 1, 8)
-    dev = device_grouped_transpose(win, G, width)
-    assert np.array_equal(np.asarray(dev), prepare_myers_segs(segs, G))
+    packed = np.asarray(device_pack_segs(hay, halo=halo, own_len=own,
+                                         num=num))
+    assert packed.shape == (halo + own, -(-num // BLOCK) * BLOCK)
+    assert np.array_equal(packed[:, :num], np.asarray(segs).T)
+    assert not packed[:, num:].any()
 
 
-def test_long_strings_route_past_vmem_guards():
-    """Pairs too long for the Pallas kernels' VMEM budget must fall back
-    (previously an opaque Mosaic OOM) and still be exact."""
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
-    from triple_accel_tpu.oracle import levenshtein_naive_k_with_opts
+@pytest.mark.parametrize("n,span", [(1, 5), (3_000, 27), (1 << 20, 288),
+                                    (1 << 27, 27)])
+def test_search_segment_sizing(n, span):
+    """Halo covers the window span in steps of 32; the owned length is a
+    power of two >= 128 and >= 4 halos (unless the haystack is shorter),
+    the segments cover the haystack, and the segment length is a whole
+    number of UNROLL steps."""
+    halo = search_halo(span, n)
+    assert halo % 32 == 0 and halo >= min(span, n)
+    own = search_own_len(n, halo)
+    assert own >= 128 and own & (own - 1) == 0
+    assert own >= min(4 * halo, n) or own >= n
+    num = seg_count(n, own)
+    assert num * own >= n and (num - 1) * own < max(n, 1)
+    assert (halo + own) % UNROLL == 0
+    if n >= 1 << 27:
+        assert num >= 1 << 17  # enough lanes to fill the card
+
+
+def test_long_strings_stay_on_kernel():
+    """Long pairs at a small k run on the kernel (its buffers grow with the
+    string, its registers only with k) and stay exact."""
+    from triple_accel_jax.dispatch import last_dispatch
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
 
     rng = np.random.default_rng(9)
-    # 1600 chars -> max_m 2048: the myers plan for k=16 packs G=8 blocks,
-    # needing 8*(2*2048+20) input rows >> the 12288-row VMEM budget
     a = rng.integers(65, 91, 1600).astype(np.uint8)
     b = a.copy()
     b[rng.integers(0, 1600, 7)] = 65
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    with _forced():
         out = levenshtein_k_batch([a], [b], 16)
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
+        assert last_dispatch().path == "myers"
     ref = levenshtein_naive_k_with_opts(a, b, 16, False)
     exp = -1 if ref is None else ref[0]
     assert int(out[0]) == exp
 
 
+def test_wide_band_routes_to_scan():
+    """A threshold whose k+1 band passes the word limit runs the scan
+    wavefront even with the kernel arms on, and stays exact."""
+    from triple_accel_jax.dispatch import last_dispatch
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
+
+    rng = np.random.default_rng(19)
+    a = rng.integers(65, 70, 300).astype(np.uint8)
+    b = rng.integers(65, 70, 310).astype(np.uint8)
+    with _forced():
+        out = levenshtein_k_batch([a], [b], 300)
+        assert last_dispatch().path == "scan"
+    assert int(out[0]) == levenshtein_naive_k_with_opts(a, b, 300, False)[0]
+
+
 @pytest.mark.parametrize("search_type_name", ["Best", "All"])
-@pytest.mark.slowcompile
 def test_search_many_matches_per_needle_api(search_type_name):
     """Dictionary search: every needle's result must equal the per-needle
-    API (mixed lengths -> multiple shared launches + fallbacks)."""
-    from triple_accel_tpu.levenshtein import (
+    API (mixed lengths -> multiple shared launches)."""
+    from triple_accel_jax.levenshtein import (
         levenshtein_search_many,
         levenshtein_search_simd_with_opts,
     )
-    from triple_accel_tpu.types import LEVENSHTEIN_COSTS, SearchType
 
     st = SearchType[search_type_name]
     rng = np.random.default_rng(13)
@@ -481,8 +508,7 @@ def test_search_many_matches_per_needle_api(search_type_name):
     hay[50:55] = needles[0]
     hay[200:209] = needles[3]
     k = 2
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    with _forced():
         many = levenshtein_search_many(needles, hay, k, st, LEVENSHTEIN_COSTS)
         singles = [
             levenshtein_search_simd_with_opts(
@@ -490,21 +516,18 @@ def test_search_many_matches_per_needle_api(search_type_name):
             )
             for nd in needles
         ]
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
     for i, (g, e) in enumerate(zip(many, singles)):
         assert g == e, (i, g[:4], e[:4])
 
 
-@pytest.mark.parametrize("m", [161, 300])
-def test_myers_long_needle_matches_oracle(m):
-    # multi-vreg Myers (needles beyond the 160-char single-vreg budget,
-    # state tiles [roundup(NW,8), 128]): exact vs the oracle
-    import os
-
-    from triple_accel_tpu.levenshtein import levenshtein_search_simd_with_opts
-    from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
-    from triple_accel_tpu.types import LEVENSHTEIN_COSTS, SearchType
+@pytest.mark.parametrize("m,path", [(161, "myers_search"),
+                                    (256, "myers_search"),
+                                    (300, "scan")])
+def test_myers_long_needle_matches_oracle(m, path):
+    """Needles up to the word limit (256 chars, eight words) run the
+    kernel; longer ones the scan wavefront — both exact."""
+    from triple_accel_jax.dispatch import last_dispatch
+    from triple_accel_jax.levenshtein import levenshtein_search_simd_with_opts
 
     rng = np.random.default_rng(m)
     needle = rng.integers(60, 80, m).astype(np.uint8)
@@ -512,8 +535,7 @@ def test_myers_long_needle_matches_oracle(m):
     mut = needle.copy()
     mut[rng.integers(0, m, 4)] = 60
     hay[200 : 200 + m] = mut
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    with _forced():
         for st in (SearchType.All, SearchType.Best):
             ref = levenshtein_search_naive_with_opts(
                 needle, hay, 6, st, LEVENSHTEIN_COSTS, False
@@ -521,20 +543,14 @@ def test_myers_long_needle_matches_oracle(m):
             got = levenshtein_search_simd_with_opts(
                 needle, hay, 6, st, LEVENSHTEIN_COSTS, False
             )
+            assert last_dispatch().path == path
             assert got == ref, (m, st)
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
 
 
 def test_search_many_long_needles():
-    # dictionary mode with multi-vreg needles (m > 160): the
-    # (needles x segment-blocks) grid and collect_hits decode must agree
-    # with the per-needle oracle
-    import os
-
-    from triple_accel_tpu.levenshtein import levenshtein_search_many
-    from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
-    from triple_accel_tpu.types import LEVENSHTEIN_COSTS, SearchType
+    # dictionary mode with multi-word needles: the (needles x segment
+    # blocks) grid and the hit decode must agree with the oracle
+    from triple_accel_jax.levenshtein import levenshtein_search_many
 
     rng = np.random.default_rng(99)
     m = 200
@@ -543,11 +559,8 @@ def test_search_many_long_needles():
     mut = needles[1].copy()
     mut[rng.integers(0, m, 3)] = 60
     hay[300 : 300 + m] = mut
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    with _forced():
         res = levenshtein_search_many(needles, hay, 5, SearchType.All)
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
     for i, nd in enumerate(needles):
         ref = levenshtein_search_naive_with_opts(
             nd, hay, 5, SearchType.All, LEVENSHTEIN_COSTS, False
@@ -555,52 +568,62 @@ def test_search_many_long_needles():
         assert res[i] == ref, i
 
 
-def test_search_many_mixed_length_halo_is_per_group():
-    """A long needle's window span must NOT inflate the halo of a short
-    G=8 needle group (the shared pack's halo is per subgroup-width G):
-    the G=8 subgroup kernel budget is ~368 rows, and a 700-char needle's
-    768-row quantized halo would blow its VMEM blocks on chip.  Asserts
-    the logged halo of every subgroup-engine group stays within
-    myers_halo_budget, and results stay exact."""
-    import os
-
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import levenshtein_search_many
-    from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
-    from triple_accel_tpu.ops.pallas.search_myers import (
-        myers_halo_budget,
-        myers_search_plan,
-    )
-    from triple_accel_tpu.types import LEVENSHTEIN_COSTS, SearchType
+def test_search_many_mixed_lengths_share_one_pack():
+    """Needle groups within the word limit share one segment pack
+    (halo of the widest group: a larger overlap is still exact); a needle
+    past the limit falls back to its own search.  All exact."""
+    from triple_accel_jax.dispatch import dispatch_history
+    from triple_accel_jax.levenshtein import levenshtein_search_many
 
     rng = np.random.default_rng(71)
     short = rng.integers(60, 80, 20).astype(np.uint8)
+    mid = rng.integers(60, 80, 200).astype(np.uint8)
     long_nd = rng.integers(60, 80, 700).astype(np.uint8)
     hay = rng.integers(60, 80, 2000).astype(np.uint8)
     hay[100:120] = short
+    hay[300:500] = mid
     mut = long_nd.copy()
     mut[rng.integers(0, 700, 2)] = 60
     hay[900:1600] = mut
     dispatch_history(clear=True)
-    os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
-    try:
+    with _forced():
         res = levenshtein_search_many(
-            [short, long_nd], hay, 3, SearchType.All
+            [short, long_nd, mid], hay, 3, SearchType.All
         )
-    finally:
-        del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
-    logged = {
-        d.padded_m: d.unit_k  # (m, halo) per shared launch
-        for _, d in dispatch_history()
-        if d.path == "myers_search_many"
-    }
-    assert set(logged) == {20, 700}, logged
-    for m, halo in logged.items():
-        assert halo <= myers_halo_budget(m), (m, halo)
-    g8 = myers_search_plan(20)[2]
-    assert g8 == 8 and logged[20] == 256, logged  # own cohort's span only
-    for nd, got in zip([short, long_nd], res):
+    logged = [(d.path, d.padded_m, d.unit_k) for _, d in dispatch_history()]
+    many = {m: h for p, m, h in logged if p == "myers_search_many"}
+    assert set(many) == {20, 200}, logged
+    assert many[20] == many[200] == search_halo(203, 2000), logged
+    assert ("scan", 700) in [(p, m) for p, m, _ in logged], logged
+    for nd, got in zip([short, long_nd, mid], res):
         ref = levenshtein_search_naive_with_opts(
             nd, hay, 3, SearchType.All, LEVENSHTEIN_COSTS, False
         )
         assert got == ref, len(nd)
+
+
+@pytest.mark.parametrize("case", ["distance_k8", "distance_k127",
+                                  "search_rdamerau", "search_anchored"])
+def test_kernels_lower_for_cuda(case):
+    """The Triton kernels lower for CUDA on any host (the lowering is the
+    GPU compile's front half): a Triton custom call appears in the
+    StableHLO, so lowering errors show up before the card."""
+    import jax
+
+    from triple_accel_jax.ops.pallas import myers_search as ms
+
+    if case.startswith("distance"):
+        k = 8 if case == "distance_k8" else 127
+        rng = np.random.default_rng(k)
+        a = [rng.integers(0, 4, 60).astype(np.uint8) for _ in range(3)]
+        args = prepare_myers_inputs(a, a, k, 64)
+        traced = myers_distance_triton.trace(*args, k=k, max_m=64)
+    else:
+        peq = prepare_peq([np.arange(24, dtype=np.uint8)] * 2, 24)
+        seg_t = np.zeros((64, BLOCK), np.uint8)
+        traced = ms.myers_search.trace(
+            peq, seg_t, needle_len=24, seg_len=64,
+            anchored=case == "search_anchored",
+            damerau=case == "search_rdamerau", interpret=False)
+    text = traced.lower(lowering_platforms=("cuda",)).as_text()
+    assert "triton" in text.lower()

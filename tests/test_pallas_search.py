@@ -1,25 +1,36 @@
-"""Pallas search kernel conformance (interpreter mode): must agree exactly
-with the scalar oracle, including length tie-breaks and chunk halos."""
+"""Search through the public API with the bit-parallel kernel arms on
+(Pallas interpret mode on the CPU) and through the scan wavefront that
+serves every other cost model and needles past the word limit: both
+must agree exactly with the scalar oracle, including length tie-breaks,
+segment halos and the dense-hit resolution paths."""
 
 import os
 
 import numpy as np
 import pytest
 
-from triple_accel_tpu import EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType
-from triple_accel_tpu.levenshtein import levenshtein_search_simd_with_opts
-from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
+from triple_accel_jax import EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType
+from triple_accel_jax.levenshtein import levenshtein_search_simd_with_opts
+from triple_accel_jax.oracle import levenshtein_search_naive_with_opts
 
 
-def _forced(path):
-    class Ctx:
-        def __enter__(self):
-            os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = path
+class _forced:
+    """Force one engine for the block; "pallas" runs the kernels in
+    interpret mode through the dispatcher's test switch."""
 
-        def __exit__(self, *a):
-            del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
+    def __init__(self, path):
+        self.path = path
 
-    return Ctx()
+    def __enter__(self):
+        from triple_accel_jax.dispatch import interpret_kernels
+
+        os.environ["TRIPLE_ACCEL_FORCE_PATH"] = self.path
+        self.sw = interpret_kernels(self.path == "pallas")
+        self.sw.__enter__()
+
+    def __exit__(self, *exc):
+        self.sw.__exit__(*exc)
+        del os.environ["TRIPLE_ACCEL_FORCE_PATH"]
 
 
 @pytest.mark.parametrize(
@@ -84,7 +95,7 @@ def test_pallas_search_small_cases():
 def test_pallas_search_nul_needle():
     # Needles containing 0x00 must not match chunk 0's synthetic zero-pad
     # halo (chunk_raw): hits are oracle-verified and artifacts dropped.
-    from triple_accel_tpu.levenshtein import levenshtein_search_many
+    from triple_accel_jax.levenshtein import levenshtein_search_many
 
     cases = [
         (b"\x00\x00a", b"abcabc", 0),
@@ -127,7 +138,7 @@ def test_pallas_search_nul_differential():
 
 
 def test_dense_hit_regime():
-    # VERDICT r1 item 3: low-complexity text with the blessed default
+    # low-complexity text with the blessed default
     # k = ceil(m/2) makes most positions hits; Best mode must use the
     # global-min filter (no per-hit loop), All mode must stay exact.
     rng = np.random.default_rng(17)
@@ -143,12 +154,12 @@ def test_dense_hit_regime():
                 needle, hay, k, st, LEVENSHTEIN_COSTS, False
             )
         assert got == ref, st
-    # same regime through the general engine (forced band path)
+    # same regime through the scan wavefront
     for st in (SearchType.Best, SearchType.All):
         ref = levenshtein_search_naive_with_opts(
             needle, hay, k, st, LEVENSHTEIN_COSTS, False
         )
-        with _forced("pallas_band"):
+        with _forced("scan"):
             got = levenshtein_search_simd_with_opts(
                 needle, hay, k, st, LEVENSHTEIN_COSTS, False
             )
@@ -160,7 +171,7 @@ def test_dense_all_mode_single_device_pass():
     hit, and the whole stream must resolve through ONE device wavefront
     pass (the batched C++ interval replay) — no general-engine re-pass.
     Asserted via the dispatch history."""
-    from triple_accel_tpu.dispatch import dispatch_history
+    from triple_accel_jax.dispatch import dispatch_history
 
     rng = np.random.default_rng(29)
     hay = rng.integers(65, 67, 40_000).astype(np.uint8)
@@ -181,16 +192,15 @@ def test_dense_all_mode_single_device_pass():
     assert len(got) > 30_000  # genuinely dense
 
 
-@pytest.mark.slowcompile
 def test_dense_over_budget_resolves_on_device():
     """When the merged replay intervals exceed _RESOLVE_CELLS_BUDGET, the
-    hits must resolve through the flat kernel over hit-bearing segments
-    (path `flat_resolve`) — the Myers pass is never discarded and no
-    engine reruns over the whole haystack (VERDICT r3 #7)."""
+    hits must resolve through the scan wavefront over hit-bearing segments
+    only (path `scan_resolve`) — the Myers pass is never discarded and no
+    engine reruns over the whole haystack."""
     import importlib
 
-    lev = importlib.import_module("triple_accel_tpu.levenshtein")
-    from triple_accel_tpu.dispatch import dispatch_history
+    lev = importlib.import_module("triple_accel_jax.levenshtein")
+    from triple_accel_jax.dispatch import dispatch_history
 
     rng = np.random.default_rng(31)
     hay = rng.integers(65, 67, 6_000).astype(np.uint8)
@@ -210,18 +220,17 @@ def test_dense_over_budget_resolves_on_device():
         paths = [d.path for _, d in dispatch_history()]
     finally:
         lev._RESOLVE_CELLS_BUDGET = saved
-    assert paths == ["myers_search", "flat_resolve"], paths
+    assert paths == ["myers_search", "scan_resolve"], paths
     assert got == ref
     assert len(got) > 4_000  # genuinely dense
 
 
-@pytest.mark.slowcompile
 def test_dense_over_budget_resolves_on_device_search_many():
     """Same degenerate-dense guarantee for the dictionary path."""
     import importlib
 
-    lev = importlib.import_module("triple_accel_tpu.levenshtein")
-    from triple_accel_tpu.levenshtein import levenshtein_search_many
+    lev = importlib.import_module("triple_accel_jax.levenshtein")
+    from triple_accel_jax.levenshtein import levenshtein_search_many
 
     rng = np.random.default_rng(33)
     hay = rng.integers(65, 67, 3_000).astype(np.uint8)
@@ -241,14 +250,13 @@ def test_dense_over_budget_resolves_on_device_search_many():
         assert got[i] == ref, i
 
 
-@pytest.mark.slowcompile
-def test_flat_resolve_nul_needle_front_pad():
+def test_scan_resolve_nul_needle_front_pad():
     """NUL bytes in the needle can match segment 0's synthetic zero-pad
-    front halo: the flat-resolve path must oracle-correct positions
+    front halo: the on-device resolve path must oracle-correct positions
     <= halo exactly like the replay path does."""
     import importlib
 
-    lev = importlib.import_module("triple_accel_tpu.levenshtein")
+    lev = importlib.import_module("triple_accel_jax.levenshtein")
 
     rng = np.random.default_rng(35)
     hay = rng.integers(0, 3, 3_000).astype(np.uint8)  # NULs in haystack
@@ -315,14 +323,13 @@ def test_rdamerau_myers_search():
         assert got == ref, needle
 
 
-@pytest.mark.slowcompile
 def test_anchored_myers_dispatch():
-    """Anchored unit/rdamerau searches route through the Myers engines as
-    a single anchored segment (VERDICT r2 item 6): dispatch log proves the
-    kernel path ran, results match the oracle — including k >= m (the
-    end-0 empty-prefix candidate), NUL needle bytes, and all three
-    engines (subgroup / blocked / chunked)."""
-    from triple_accel_tpu.dispatch import dispatch_history
+    """Anchored unit/rdamerau searches route through the Myers kernel as a
+    single anchored segment: dispatch log proves the kernel path ran,
+    results match the oracle — including k >= m (the end-0 empty-prefix
+    candidate), NUL needle bytes, the word limit (256 chars) and
+    needles past it (the scan wavefront)."""
+    from triple_accel_jax.dispatch import dispatch_history
 
     rng = np.random.default_rng(53)
     cases = [
@@ -330,8 +337,9 @@ def test_anchored_myers_dispatch():
         (12, 6, 300, LEVENSHTEIN_COSTS, "myers_search"),
         (12, 15, 300, LEVENSHTEIN_COSTS, "myers_search"),  # k >= m: end-0
         (12, 6, 300, RDAMERAU_COSTS, "myers_search_rdamerau"),
-        (1500, 400, 3000, LEVENSHTEIN_COSTS, "myers_search_blocked"),
-        (2000, 2100, 4200, LEVENSHTEIN_COSTS, "myers_search_chunked"),
+        (256, 40, 600, RDAMERAU_COSTS, "myers_search_rdamerau"),
+        (1500, 400, 3000, LEVENSHTEIN_COSTS, "scan"),
+        (2000, 2100, 4200, LEVENSHTEIN_COSTS, "scan"),
     ]
     for m, k, n, costs, path in cases:
         needle = rng.integers(0, 4, m).astype(np.uint8)
@@ -392,15 +400,12 @@ def _oracle_end_dists(needle, hay, costs, anchored):
         (1500, True, True),
     ],
 )
-def test_blocked_kernel_conformance(m, damerau, anchored):
-    """Direct blocked-kernel distances (single whole-haystack segment) vs
-    the oracle, across strip-boundary word counts, rdamerau and anchored
-    modes."""
-    from triple_accel_tpu.ops.pallas.search_myers import (
-        blocked_search_pallas,
-        prepare_blocked_search_inputs,
-    )
-    from triple_accel_tpu import RDAMERAU_COSTS as RD, LEVENSHTEIN_COSTS as LV
+def test_long_needle_scan_conformance(m, damerau, anchored):
+    """Needles far past the word limit run the scan wavefront
+    (ops/search_scan.py): its distances over one whole-haystack segment
+    equal the oracle's, for rdamerau and anchored modes too."""
+    from triple_accel_jax import RDAMERAU_COSTS as RD, LEVENSHTEIN_COSTS as LV
+    from triple_accel_jax.ops.search_scan import chunk_haystack, search_scan
 
     rng = np.random.default_rng(m * 2 + damerau + 10 * anchored)
     n = 260
@@ -408,26 +413,26 @@ def test_blocked_kernel_conformance(m, damerau, anchored):
     hay = rng.integers(0, 4, n).astype(np.uint8)
     hay[30:200] = needle[:170]  # correlated region
     costs = RD if damerau else LV
-    nchar, seg_t, width, _BG = prepare_blocked_search_inputs(
-        needle, hay[None, :]
+    seg_pad, seg_n, seg_off, _, seg_len = chunk_haystack(hay, m, 0, 512)
+    dist, _ = search_scan(
+        needle.astype(np.int32), seg_pad, seg_n, seg_off, needle_len=m,
+        seg_len=seg_len,
+        costs_t=(costs.mismatch_cost, costs.gap_cost, costs.start_gap_cost,
+                 costs.transpose_cost_or_zero, costs.allow_transpose),
+        anchored=anchored,
     )
-    out = np.asarray(
-        blocked_search_pallas(
-            nchar, seg_t, needle_len=m, width=width, seg_len=n,
-            anchored=anchored, interpret=True, damerau=damerau,
-        )
-    )[: n + 1, 0]
+    out = np.asarray(dist)[0, : n + 1]
     ref = _oracle_end_dists(needle, hay, costs, anchored)
     # anchored oracle caps its column iteration at m + k; with k = m and
     # n << m no cap applies here
     assert np.array_equal(out.astype(np.int64), ref), (m, damerau, anchored)
 
 
-def test_blocked_long_needle_dispatch():
-    """A >1280-char needle routes to the blocked path end-to-end
-    (dispatch-log checked) and matches the oracle through the public
-    API, including halo chunking and hit resolution."""
-    from triple_accel_tpu.dispatch import last_dispatch
+def test_long_needle_dispatch():
+    """A needle past the word limit routes to the scan wavefront even
+    with the kernel arms on (dispatch-log checked) and matches the oracle
+    through the public API, including halo chunking."""
+    from triple_accel_jax.dispatch import last_dispatch
 
     rng = np.random.default_rng(4242)
     m = 1300
@@ -444,29 +449,30 @@ def test_blocked_long_needle_dispatch():
         got = levenshtein_search_simd_with_opts(
             needle, hay, k, SearchType.All, LEVENSHTEIN_COSTS, False
         )
-    assert last_dispatch().path == "myers_search_blocked"
+    assert last_dispatch().path == "scan"
     assert got == ref
 
 
 @pytest.mark.parametrize("damerau", [False, True])
-def test_chunked_search_engine(damerau):
-    """The chunked search engine (needle strips as chained launches, text
-    tiled per grid step — the any-(m, k) fallback) must match the oracle;
-    forced by shrinking the other engines' budgets."""
-    import triple_accel_tpu.ops.pallas.search_myers as sm
-    from triple_accel_tpu import RDAMERAU_COSTS
-    from triple_accel_tpu.dispatch import last_dispatch
+def test_multi_segment_search_engine(damerau):
+    """A haystack cut into many kernel segments (owned length shrunk so
+    every segment boundary gets crossed): exact vs the oracle, a plant
+    straddling a boundary included."""
+    from unittest import mock
+
+    import triple_accel_jax.ops.pallas.myers_search as sm
+    from triple_accel_jax import RDAMERAU_COSTS
+    from triple_accel_jax.dispatch import last_dispatch
 
     costs = RDAMERAU_COSTS if damerau else LEVENSHTEIN_COSTS
-    saved = (sm.myers_halo_budget, sm.blocked_seg_budget)
-    sm.myers_halo_budget = lambda m: 0
-    sm.blocked_seg_budget = lambda: 0
-    try:
-        rng = np.random.default_rng(31 + damerau)
-        m, n, k = 11, 1400, 3
-        needle = rng.integers(0, 4, m).astype(np.uint8)
-        hay = rng.integers(0, 4, n).astype(np.uint8)
-        hay[600 : 600 + m] = needle
+    rng = np.random.default_rng(31 + damerau)
+    m, n, k = 11, 1400, 3
+    needle = rng.integers(0, 4, m).astype(np.uint8)
+    hay = rng.integers(0, 4, n).astype(np.uint8)
+    hay[600 : 600 + m] = needle
+    hay[507 : 507 + m] = needle  # straddles the 512 boundary
+    with mock.patch.object(sm, "TARGET_LANES", 16):
+        assert sm.search_own_len(n, sm.search_halo(m + k, n)) == 128
         for st in (SearchType.All, SearchType.Best):
             ref = levenshtein_search_naive_with_opts(
                 needle, hay, k, st, costs, False
@@ -475,19 +481,15 @@ def test_chunked_search_engine(damerau):
                 got = levenshtein_search_simd_with_opts(
                     needle, hay, k, st, costs, False
                 )
-            assert last_dispatch().path == "myers_search_chunked"
+            assert last_dispatch().path.startswith("myers_search")
+            assert last_dispatch().padded_n == 32 + 128
             assert got == ref, (st, damerau)
-    finally:
-        sm.myers_halo_budget, sm.blocked_seg_budget = saved
 
 
-@pytest.mark.slowcompile
-def test_flat_engine_small_tiles():
-    """The flat row-oriented engine (general costs, unbounded needles)
-    vs the oracle with shrunken tiles (rj/ti are jit-static, so small
-    test tiles don't poison the default-size cache)."""
-    from triple_accel_tpu.levenshtein import _flat_search_dispatch
-    from triple_accel_tpu.ops.search_scan import window_span
+def test_scan_engine_general_costs():
+    """The scan wavefront (general costs; the cases of the removed
+    row-oriented search kernel) vs the oracle through the public API."""
+    from triple_accel_jax.dispatch import last_dispatch
 
     rng = np.random.default_rng(55)
     cases = [
@@ -502,45 +504,38 @@ def test_flat_engine_small_tiles():
         hay = rng.integers(0, 4, n).astype(np.uint8)
         p = int(rng.integers(0, n - m))
         hay[p : p + m] = needle
-        halo = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost),
-                   n)
         for st in (SearchType.All, SearchType.Best):
             ref = levenshtein_search_naive_with_opts(
                 needle, hay, k, st, costs, False
             )
-            got = _flat_search_dispatch(needle, hay, k, st, costs, n, halo,
-                                        rj=128, ti=32)
+            with _forced("scan"):
+                got = levenshtein_search_simd_with_opts(
+                    needle, hay, k, st, costs, False
+                )
+            assert last_dispatch().path == "scan"
             assert got == ref, (m, n, k, st, costs)
 
 
-@pytest.mark.slowcompile
-def test_flat_engine_long_needle_routing():
-    """A 1200-char needle with affine costs routes to the flat engine
-    through the public API (the old path fell to lax.scan) and matches
-    the oracle."""
-    import triple_accel_tpu.ops.pallas.search_flat as sf
-    from triple_accel_tpu.dispatch import last_dispatch
+def test_long_needle_general_costs_route_to_scan():
+    """A 1200-char needle with affine costs routes to the scan wavefront
+    through the public API (kernel arms on) and matches the oracle."""
+    from triple_accel_jax.dispatch import last_dispatch
 
-    saved = (sf.RJ, sf.TI)
-    sf.RJ, sf.TI = 128, 32  # static jit args — small tiles for interpret
-    try:
-        rng = np.random.default_rng(66)
-        m = 1200
-        costs = EditCosts(2, 1, 1, None)
-        needle = rng.integers(0, 6, m).astype(np.uint8)
-        hay = rng.integers(0, 6, 400).astype(np.uint8)
-        copy = needle[:350].copy()
-        copy[100] = (copy[100] + 1) % 6
-        hay[20:370] = copy
-        k = 3
-        ref = levenshtein_search_naive_with_opts(
+    rng = np.random.default_rng(66)
+    m = 1200
+    costs = EditCosts(2, 1, 1, None)
+    needle = rng.integers(0, 6, m).astype(np.uint8)
+    hay = rng.integers(0, 6, 400).astype(np.uint8)
+    copy = needle[:350].copy()
+    copy[100] = (copy[100] + 1) % 6
+    hay[20:370] = copy
+    k = 3
+    ref = levenshtein_search_naive_with_opts(
+        needle, hay, k, SearchType.All, costs, False
+    )
+    with _forced("pallas"):
+        got = levenshtein_search_simd_with_opts(
             needle, hay, k, SearchType.All, costs, False
         )
-        with _forced("pallas"):
-            got = levenshtein_search_simd_with_opts(
-                needle, hay, k, SearchType.All, costs, False
-            )
-        assert last_dispatch().path == "flat_search"
-        assert got == ref
-    finally:
-        sf.RJ, sf.TI = saved
+    assert last_dispatch().path == "scan"
+    assert got == ref

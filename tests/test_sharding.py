@@ -6,15 +6,15 @@ import jax
 import numpy as np
 import pytest
 
-from triple_accel_tpu import LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType
-from triple_accel_tpu.levenshtein import postprocess_matches
-from triple_accel_tpu.oracle import (
+from triple_accel_jax import LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType
+from triple_accel_jax.levenshtein import postprocess_matches
+from triple_accel_jax.oracle import (
     levenshtein_naive_k_with_opts,
     levenshtein_search_naive_with_opts,
 )
-from triple_accel_tpu.ops.band_scan import prepare_band_inputs
-from triple_accel_tpu.ops.search_scan import window_span
-from triple_accel_tpu.parallel import (
+from triple_accel_jax.ops.band_scan import prepare_band_inputs
+from triple_accel_jax.ops.search_scan import window_span
+from triple_accel_jax.parallel import (
     assemble_sharded_search,
     make_mesh,
     match_count_psum,
@@ -112,7 +112,7 @@ def test_assert_mesh_consistent_single_process():
     # single process: a no-op that accepts any mesh
     import jax
 
-    from triple_accel_tpu.parallel import assert_mesh_consistent, make_mesh
+    from triple_accel_jax.parallel import assert_mesh_consistent, make_mesh
 
     assert_mesh_consistent(make_mesh(jax.devices()[:2]))
     assert_mesh_consistent(make_mesh(jax.devices()))
@@ -126,18 +126,19 @@ def test_assert_mesh_consistent_single_process():
 
 def test_sharded_myers_distance_matches_unsharded():
     """DP over the mesh with the bit-parallel distance kernel: sharding the
-    lane axis must be bit-identical to the single-device kernel (and both
+    pair axis must be bit-identical to the single-device kernel (and both
     exact vs the oracle)."""
-    from triple_accel_tpu.ops.pallas.lev_myers import (
-        myers_distance_pallas,
+    from triple_accel_jax.ops.pallas.myers_distance import (
+        BLOCK,
+        myers_distance_triton,
         prepare_myers_inputs,
     )
-    from triple_accel_tpu.parallel import sharded_myers_distance
+    from triple_accel_jax.parallel import sharded_myers_distance
 
     rng = np.random.default_rng(41)
     D, k, max_m = 4, 32, 32
     mesh = make_mesh(jax.devices()[:D])
-    B = 4096  # G=4 at k=32 -> BG=1024 -> 2 grid steps per device
+    B = 1000  # pads to 1024: two kernel blocks per device
     a_list, b_list = [], []
     for _ in range(B):
         la = int(rng.integers(1, max_m))
@@ -147,14 +148,14 @@ def test_sharded_myers_distance_matches_unsharded():
             y[rng.integers(0, la, min(3, k))] = 1
         a_list.append(x)
         b_list.append(y)
-    *args, decode = prepare_myers_inputs(a_list, b_list, k, max_m,
-                                         n_shards=D)
-    d_sh = decode(np.asarray(sharded_myers_distance(
+    args = prepare_myers_inputs(a_list, b_list, k, max_m, lanes=BLOCK * D)
+    assert args[2].shape[0] == 1024
+    d_sh = np.asarray(sharded_myers_distance(
         mesh, *args, k=k, max_m=max_m, interpret=True
-    )))
-    d_un = decode(np.asarray(myers_distance_pallas(
+    ))
+    d_un = np.asarray(myers_distance_triton(
         *args, k=k, max_m=max_m, interpret=True
-    )))
+    ))
     assert np.array_equal(d_sh, d_un)
     for p in rng.integers(0, B, 16):
         ref = levenshtein_naive_k_with_opts(a_list[p], b_list[p], k)
@@ -168,8 +169,8 @@ def test_levenshtein_k_batch_mesh_param():
     """The public batched API accepting a mesh: identical results to the
     meshless call for unit costs (Myers kernel path) AND a non-unit cost
     model (sharded scan fallback)."""
-    from triple_accel_tpu import EditCosts
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
+    from triple_accel_jax import EditCosts
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
 
     rng = np.random.default_rng(42)
     mesh = make_mesh(jax.devices()[:4])
@@ -190,10 +191,10 @@ def test_levenshtein_k_batch_mesh_param():
 
 
 def test_levenshtein_exp_batch_mesh_param():
-    """exp_batch threads `mesh` into every k-doubling round (VERDICT r4
-    #8): results must be identical to the meshless call and exact."""
-    from triple_accel_tpu.levenshtein import levenshtein_exp_batch
-    from triple_accel_tpu.oracle import levenshtein_naive_with_opts
+    """exp_batch threads `mesh` into every k-doubling round: results must
+    be identical to the meshless call and exact."""
+    from triple_accel_jax.levenshtein import levenshtein_exp_batch
+    from triple_accel_jax.oracle import levenshtein_naive_with_opts
 
     rng = np.random.default_rng(17)
     mesh = make_mesh(jax.devices()[:4])
@@ -216,25 +217,26 @@ def test_levenshtein_exp_batch_mesh_param():
 @pytest.mark.parametrize("m,k,damerau", [(24, 5, False), (24, 5, True),
                                          (4, 4, False)])
 def test_sharded_myers_search_matches_unsharded(m, k, damerau):
-    """SP sharded-haystack search on the production subgroup kernel: the
-    (end position, distance) hit set must equal the unsharded kernel's,
+    """SP sharded-haystack search on the bit-parallel kernel: the (end
+    position, distance) hit set must equal the unsharded kernel's,
     including matches straddling shard boundaries and the end-0 candidate
     (m <= k case)."""
-    from triple_accel_tpu.ops.pallas.search_myers import (
+    from triple_accel_jax.ops.pallas.myers_search import (
         collect_hits,
+        fetch_candidate_blocks,
         myers_search_block_mins_from_hay,
-        myers_search_plan,
-        prepare_myers_needles,
+        prepare_peq,
         seg_count,
     )
-    from triple_accel_tpu.parallel import (
+    from triple_accel_jax.parallel import (
         collect_sharded_hits,
+        shard_haystack,
         sharded_myers_search_mins,
     )
 
     rng = np.random.default_rng(7 * m + k)
-    D, own_len, num_local, halo = 4, 128, 2, 128
-    S = own_len * num_local
+    D, own_len, halo = 4, 128, 32
+    S = own_len * 2
     n = D * S - 37  # partial last shard
     needle = rng.integers(33, 127, m).astype(np.uint8)
     hay = rng.integers(33, 127, n).astype(np.uint8)
@@ -245,54 +247,39 @@ def test_sharded_myers_search_matches_unsharded(m, k, damerau):
             if pos % 2 and m > 2:
                 hay[pos + m // 2] = 33
 
-    nchar = prepare_myers_needles([needle], m)
-    shards = np.zeros((D, S), dtype=np.uint8)
-    shards.reshape(-1)[:n] = hay
+    peq = prepare_peq([needle], m)
+    shards, S2 = shard_haystack(hay, D, halo, own_len)
+    assert S2 == S
     dist_d, mins_d = sharded_myers_search_mins(
-        mesh=make_mesh(jax.devices()[:D]), shards=shards, nchar=nchar,
-        needle_len=m, halo=halo, own_len=own_len, damerau=damerau,
-        interpret=True,
+        make_mesh(jax.devices()[:D]), shards, peq, needle_len=m, halo=halo,
+        own_len=own_len, damerau=damerau, interpret=True,
     )
-    gpos_s, d_s = collect_sharded_hits(
-        dist_d, mins_d, D=D, k=k, needle_len=m, halo=halo,
-        own_len=own_len, shard_size=S, n_total=n,
+    _, gpos_s, d_s = collect_sharded_hits(
+        dist_d, mins_d, D=D, k=k, halo=halo, own_len=own_len,
+        shard_size=S, n_total=n,
     )
 
     # unsharded reference: same kernel, whole haystack
     C = seg_count(n, own_len)
-    G = myers_search_plan(m)[2]
-    seg_len = halo + own_len
-    OUT = -(-(seg_len + 1) // 8) * 8
     dist_u, mins_u = myers_search_block_mins_from_hay(
-        hay, nchar, needle_len=m, halo=halo, own_len=own_len, num=C,
+        hay, peq, needle_len=m, halo=halo, own_len=own_len, num=C,
         damerau=damerau, interpret=True,
     )
-    mins_h = np.asarray(mins_u)
-    rb, cols = np.nonzero(mins_h <= k)
+    blocks, rb, cols = fetch_candidate_blocks(dist_u, mins_u, k)
     assert rb.size
-    import jax.numpy as jnp
-    from triple_accel_tpu.ops.pallas.search_myers import myers_gather_blocks
-
-    pad_n = 1 << max(3, int(np.ceil(np.log2(rb.size))))
-    rb_p = np.empty(pad_n, np.int32)
-    cols_p = np.empty(pad_n, np.int32)
-    rb_p[: rb.size], rb_p[rb.size:] = rb, rb[-1]
-    cols_p[: cols.size], cols_p[cols.size:] = cols, cols[-1]
-    blocks = np.asarray(myers_gather_blocks(dist_u, rb_p, cols_p))
     _, gpos_u, d_u = collect_hits(
-        blocks, rb, cols, k, OUT=OUT, G=G, C=C, halo=halo,
+        blocks, rb, cols, k, OUT=halo + own_len + 1, C=C, halo=halo,
         own_len=own_len, limit_pos=n,
     )
-    order = np.argsort(gpos_s)
-    assert np.array_equal(gpos_s[order], gpos_u)
-    assert np.array_equal(d_s[order], d_u)
+    assert np.array_equal(gpos_s, gpos_u)
+    assert np.array_equal(d_s, d_u)
 
 
 @pytest.mark.parametrize("costs", [LEVENSHTEIN_COSTS, RDAMERAU_COSTS])
 def test_levenshtein_search_sharded_matches_single_device(costs):
     """Public sharded search == single-device search == oracle, in both
     search modes, including a Best-mode tie across a shard boundary."""
-    from triple_accel_tpu.levenshtein import (
+    from triple_accel_jax.levenshtein import (
         levenshtein_search_sharded,
         levenshtein_search_simd_with_opts,
     )
@@ -321,8 +308,8 @@ def test_levenshtein_search_sharded_matches_single_device(costs):
 def test_levenshtein_search_sharded_general_costs():
     """Non-unit costs route through the sharded scan wavefront and still
     match the oracle exactly."""
-    from triple_accel_tpu import EditCosts
-    from triple_accel_tpu.levenshtein import levenshtein_search_sharded
+    from triple_accel_jax import EditCosts
+    from triple_accel_jax.levenshtein import levenshtein_search_sharded
 
     rng = np.random.default_rng(3)
     mesh = make_mesh(jax.devices()[:4])
@@ -340,11 +327,11 @@ def test_levenshtein_search_sharded_general_costs():
 
 
 def test_sharded_search_multi_mb_realistic_halo():
-    """VERDICT r3 #8: a multi-MB haystack over 8 devices with a realistic
+    """A multi-MB haystack over 8 devices with a realistic
     (512-char) halo — planted matches straddling every shard boundary
     must come back exactly once each (owner-by-end), equal to the
     single-device public search."""
-    from triple_accel_tpu.levenshtein import (
+    from triple_accel_jax.levenshtein import (
         levenshtein_search_sharded,
         levenshtein_search_simd_with_opts,
     )
@@ -375,31 +362,36 @@ def test_sharded_search_multi_mb_realistic_halo():
 
 
 # ---------------------------------------------------------------------------
-# Mesh x engine matrix (VERDICT r4 #2): every single-chip engine must run
-# per device through the public APIs, logged by name, exact vs oracle.
+# Mesh x engine matrix: every single-device engine must run per device
+# through the public APIs, logged by name, exact vs oracle.
 # ---------------------------------------------------------------------------
 
 
 def _mesh_forced_pallas():
+    """The kernel arms forced on (interpret mode on the CPU mesh)."""
     import contextlib
     import os
 
+    from triple_accel_jax.dispatch import interpret_kernels
+
     @contextlib.contextmanager
     def cm():
-        os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"] = "pallas"
+        os.environ["TRIPLE_ACCEL_FORCE_PATH"] = "pallas"
         try:
-            yield
+            with interpret_kernels():
+                yield
         finally:
-            del os.environ["TRIPLE_ACCEL_TPU_FORCE_PATH"]
+            del os.environ["TRIPLE_ACCEL_FORCE_PATH"]
     return cm()
 
 
 def test_k_batch_mesh_band_engine():
-    """Non-unit-cost batches on a mesh run the band kernel per device
-    (VERDICT r4 #2a) — mesh == meshless == oracle, dispatch logged."""
-    from triple_accel_tpu import EditCosts
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
+    """Non-unit-cost batches on a mesh run the banded scan wavefront per
+    device even with the kernel arms on — mesh == meshless == oracle,
+    dispatch logged."""
+    from triple_accel_jax import EditCosts
+    from triple_accel_jax.dispatch import dispatch_history
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
 
     rng = np.random.default_rng(21)
     mesh = make_mesh(jax.devices()[:4])
@@ -413,7 +405,7 @@ def test_k_batch_mesh_band_engine():
         got = levenshtein_k_batch(a_list, b_list, 20, costs, mesh=mesh)
         paths = [d.path for _, d in dispatch_history()]
         ref = levenshtein_k_batch(a_list, b_list, 20, costs)
-    assert "band_sharded" in paths, paths
+    assert paths == ["scan_sharded"], paths
     assert np.array_equal(got, ref)
     for i in range(0, 50, 7):
         r = levenshtein_naive_k_with_opts(a_list[i], b_list[i], 20, False,
@@ -421,20 +413,13 @@ def test_k_batch_mesh_band_engine():
         assert int(got[i]) == (-1 if r is None else r[0]), i
 
 
-def test_k_batch_mesh_flat_engine():
-    """Wide-band non-unit batches past the band plans run flat_distance
-    per device (VERDICT r4 #2a): dispatch logs flat_distance_sharded and
-    results stay exact.  The engine guard is forced (its chip-calibrated
-    time model would send this tiny batch to the scan)."""
-    import importlib
-    from unittest import mock
+def test_k_batch_mesh_wide_band_scan():
+    """Wide-band non-unit batches (the cases of the removed full-matrix
+    distance kernel) run the scan wavefront per device and stay exact."""
+    from triple_accel_jax import EditCosts
+    from triple_accel_jax.dispatch import dispatch_history
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
 
-    from triple_accel_tpu import EditCosts
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
-
-    lb_mod = importlib.import_module("triple_accel_tpu.ops.pallas.lev_band")
-    lev_mod = importlib.import_module("triple_accel_tpu.levenshtein")
     rng = np.random.default_rng(22)
     mesh = make_mesh(jax.devices()[:4])
     costs = EditCosts(2, 1, 2, None)
@@ -442,61 +427,51 @@ def test_k_batch_mesh_flat_engine():
               for _ in range(40)]
     b_list = [rng.integers(65, 70, int(rng.integers(0, 60))).astype(np.uint8)
               for _ in range(40)]
-    with mock.patch.object(lb_mod, "band_vmem_plan", lambda mm, uk: None), \
-         mock.patch.object(lev_mod, "_flat_beats_scan",
-                           lambda *a, **kw: True), \
-         _mesh_forced_pallas():
+    with _mesh_forced_pallas():
         dispatch_history(clear=True)
         got = levenshtein_k_batch(a_list, b_list, 150, costs, mesh=mesh)
         paths = [d.path for _, d in dispatch_history()]
-    assert "flat_distance_sharded" in paths, paths
+    assert paths == ["scan_sharded"], paths
     for i in range(40):
         r = levenshtein_naive_k_with_opts(a_list[i], b_list[i], 150, False,
                                           costs)
         assert int(got[i]) == (-1 if r is None else r[0]), i
 
 
-def test_k_batch_mesh_blocked_engine():
-    """Unit-cost batches past every band plan run the chained blocked
-    Myers distance per device (VERDICT r4 #2a), including the m == 0
-    fixup lanes."""
-    import importlib
-    from unittest import mock
+def test_k_batch_mesh_past_register_limit():
+    """Unit-cost batches whose k+1 band passes the word limit run the
+    scan wavefront per device, including an m == 0 pair, and stay
+    exact; within the limit the kernel runs per device."""
+    from triple_accel_jax.dispatch import dispatch_history
+    from triple_accel_jax.levenshtein import levenshtein_k_batch
 
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import levenshtein_k_batch
-
-    lb_mod = importlib.import_module("triple_accel_tpu.ops.pallas.lev_band")
-    lm_mod = importlib.import_module("triple_accel_tpu.ops.pallas.lev_myers")
     rng = np.random.default_rng(23)
     mesh = make_mesh(jax.devices()[:4])
-    a_list = [rng.integers(65, 91, int(rng.integers(0, 60))).astype(np.uint8)
+    a_list = [rng.integers(65, 91, int(rng.integers(0, 400))).astype(np.uint8)
               for _ in range(40)]
-    b_list = [rng.integers(65, 91, int(rng.integers(0, 60))).astype(np.uint8)
+    b_list = [rng.integers(65, 91, int(rng.integers(0, 400))).astype(np.uint8)
               for _ in range(40)]
-    a_list[3] = np.empty(0, dtype=np.uint8)  # m == 0 fixup lane
-    with mock.patch.object(lb_mod, "band_vmem_plan", lambda mm, uk: None), \
-         mock.patch.object(lm_mod, "myers_plan", lambda kk: None), \
-         _mesh_forced_pallas():
-        dispatch_history(clear=True)
-        got = levenshtein_k_batch(a_list, b_list, 20, LEVENSHTEIN_COSTS,
-                                  mesh=mesh)
-        paths = [d.path for _, d in dispatch_history()]
-    assert "myers_blocked_sharded" in paths, paths
-    for i in range(40):
-        r = levenshtein_naive_k_with_opts(a_list[i], b_list[i], 20, False,
-                                          LEVENSHTEIN_COSTS)
-        assert int(got[i]) == (-1 if r is None else r[0]), i
+    a_list[3] = np.empty(0, dtype=np.uint8)  # m == 0 pair
+    for k, path in ((300, "scan_sharded"), (20, "myers_sharded")):
+        with _mesh_forced_pallas():
+            dispatch_history(clear=True)
+            got = levenshtein_k_batch(a_list, b_list, k, LEVENSHTEIN_COSTS,
+                                      mesh=mesh)
+            paths = [d.path for _, d in dispatch_history()]
+        assert paths == [path], paths
+        for i in range(40):
+            r = levenshtein_naive_k_with_opts(a_list[i], b_list[i], k, False,
+                                              LEVENSHTEIN_COSTS)
+            assert int(got[i]) == (-1 if r is None else r[0]), (k, i)
 
 
-@pytest.mark.slowcompile
 def test_search_sharded_flat_engine():
-    """General-cost sharded search runs the FLAT kernel per device with
-    on-device lengths (VERDICT r4 #2b) — both modes match the oracle and
-    the single-device search, boundary straddler included."""
-    from triple_accel_tpu import EditCosts
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import (
+    """General-cost sharded search runs the scan wavefront per device with
+    on-device lengths — both modes match the oracle and the single-device
+    search, boundary straddler and device-0 front region included."""
+    from triple_accel_jax import EditCosts
+    from triple_accel_jax.dispatch import dispatch_history
+    from triple_accel_jax.levenshtein import (
         levenshtein_search_sharded,
         levenshtein_search_simd_with_opts,
     )
@@ -521,16 +496,15 @@ def test_search_sharded_flat_engine():
                                                     costs)
             assert got == ref, st
         paths = [d.path for _, d in dispatch_history()]
-    assert "flat_search_sharded" in paths, paths
+    assert "scan_search_sharded" in paths, paths
 
 
-@pytest.mark.slowcompile
 def test_search_sharded_long_needle_blocked_engine():
-    """A 1700-char unit-cost needle on a mesh runs the BLOCKED Myers
-    kernel per device (VERDICT r4 #2b: needles past the 1280-char
-    subgroup budget must not fall to the scan)."""
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import (
+    """A 1700-char unit-cost needle (past the word limit) on a mesh
+    runs the sharded scan wavefront and equals the single-device
+    search."""
+    from triple_accel_jax.dispatch import dispatch_history
+    from triple_accel_jax.levenshtein import (
         levenshtein_search_sharded,
         levenshtein_search_simd_with_opts,
     )
@@ -552,26 +526,20 @@ def test_search_sharded_long_needle_blocked_engine():
         paths = [d.path for _, d in dispatch_history()]
         ref = levenshtein_search_simd_with_opts(needle, hay, k,
                                                 SearchType.All)
-    assert "myers_search_blocked_sharded" in paths, paths
+    assert paths == ["scan_search_sharded"], paths
     assert got == ref
     assert len(got) >= 3
 
 
-@pytest.mark.slowcompile
 def test_search_sharded_chunked_engine():
-    """With the blocked budget mocked away, sharded unit-cost search runs
-    the CHUNKED engine per device and stays exact (end-0 candidate and
-    owner-by-end included)."""
-    import importlib
-    from unittest import mock
-
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import (
+    """A 1400-char needle straddling a shard boundary, sharded: the scan
+    wavefront per device stays exact under the owner-by-end rule."""
+    from triple_accel_jax.dispatch import dispatch_history
+    from triple_accel_jax.levenshtein import (
         levenshtein_search_sharded,
         levenshtein_search_simd_with_opts,
     )
 
-    sm = importlib.import_module("triple_accel_tpu.ops.pallas.search_myers")
     rng = np.random.default_rng(26)
     mesh = make_mesh(jax.devices()[:4])
     m, k = 1400, 10
@@ -579,14 +547,12 @@ def test_search_sharded_chunked_engine():
     n = 4 * 2048 + 17
     hay = rng.integers(65, 91, n).astype(np.uint8)
     hay[2048 - m // 2: 2048 - m // 2 + m] = needle
-    with mock.patch.object(sm, "myers_halo_budget", lambda mm: 0), \
-         mock.patch.object(sm, "blocked_seg_budget", lambda: 0), \
-         _mesh_forced_pallas():
+    with _mesh_forced_pallas():
         dispatch_history(clear=True)
         got = levenshtein_search_sharded(needle, hay, k, mesh,
                                          SearchType.All)
         paths = [d.path for _, d in dispatch_history()]
-    assert "myers_search_chunked_sharded" in paths, paths
+    assert paths == ["scan_search_sharded"], paths
     ref = levenshtein_search_naive_with_opts(
         needle, hay, k, SearchType.All, LEVENSHTEIN_COSTS, False
     )
@@ -594,13 +560,13 @@ def test_search_sharded_chunked_engine():
 
 
 def test_search_many_sharded_matches_meshless():
-    """Sharded dictionary serving (VERDICT r4 #4): levenshtein_search_many
+    """Sharded dictionary serving: levenshtein_search_many
     with a mesh — resident sharded pack, needles broadcast, one
     multi-needle launch per device — must equal the meshless call and the
-    oracle, across mixed needle lengths (two subgroup widths) and both
+    oracle, across mixed needle lengths (two launches) and both
     modes, with the PackedHaystack reused across calls."""
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import (
+    from triple_accel_jax.dispatch import dispatch_history
+    from triple_accel_jax.levenshtein import (
         PackedHaystack,
         levenshtein_search_many,
     )
@@ -642,7 +608,7 @@ def test_search_many_sharded_matches_meshless():
 def test_hamming_batch_mesh_param():
     """hamming_batch(mesh=): batch-axis DP sharding must equal the
     meshless call exactly, including the non-divisible pad path."""
-    from triple_accel_tpu.hamming import hamming_batch
+    from triple_accel_jax.hamming import hamming_batch
 
     rng = np.random.default_rng(61)
     mesh = make_mesh(jax.devices()[:4])
@@ -664,11 +630,11 @@ def test_hamming_search_sharded_matches_single_device():
     exactly, so the sharded counts/minima share the single-device layout —
     results must match hamming_search_simd_with_opts and the oracle,
     including matches straddling shard boundaries, in both modes."""
-    from triple_accel_tpu.hamming import (
+    from triple_accel_jax.hamming import (
         hamming_search_sharded,
         hamming_search_simd_with_opts,
     )
-    from triple_accel_tpu.oracle import hamming_search_naive_with_opts
+    from triple_accel_jax.oracle import hamming_search_naive_with_opts
 
     rng = np.random.default_rng(77)
     mesh = make_mesh(jax.devices())
@@ -689,35 +655,30 @@ def test_hamming_search_sharded_matches_single_device():
         assert got == ora, st
 
 
-@pytest.mark.slowcompile
 def test_search_many_sharded_fallback_routes_sharded():
-    """Dictionary groups outside the shared-pack budget must fall back to
-    the SHARDED single-needle search (not the single-device one) when a
-    mesh is given — pinned by mocking the halo budget to zero and
-    asserting the sharded dispatch path ran, results exact."""
-    import importlib
-    from unittest import mock
+    """Dictionary needles past the word limit must fall back to the
+    SHARDED single-needle search (not the single-device one) when a mesh
+    is given; the others still share one launch per device."""
+    from triple_accel_jax.dispatch import dispatch_history
+    from triple_accel_jax.levenshtein import levenshtein_search_many
 
-    from triple_accel_tpu.dispatch import dispatch_history
-    from triple_accel_tpu.levenshtein import levenshtein_search_many
-
-    sm = importlib.import_module("triple_accel_tpu.ops.pallas.search_myers")
     rng = np.random.default_rng(71)
     mesh = make_mesh(jax.devices()[:4])
     n = 4 * 1024 + 9
     hay = rng.integers(65, 91, n).astype(np.uint8)
-    needles = [rng.integers(65, 91, 12).astype(np.uint8) for _ in range(2)]
-    hay[1024 - 6: 1024 + 6] = needles[0]  # boundary straddler
-    with mock.patch.object(sm, "myers_halo_budget", lambda mm: 0), \
-         _mesh_forced_pallas():
+    needles = [rng.integers(65, 91, 300).astype(np.uint8),
+               rng.integers(65, 91, 12).astype(np.uint8)]
+    hay[1024 - 150: 1024 + 150] = needles[0]  # boundary straddler
+    hay[3000: 3012] = needles[1]
+    with _mesh_forced_pallas():
         dispatch_history(clear=True)
         got = levenshtein_search_many(needles, hay, 2, SearchType.All,
                                       mesh=mesh)
         paths = [d.path for _, d in dispatch_history()]
-    assert any("_sharded" in p for p in paths), paths
-    assert "myers_search_many_sharded" not in paths, paths
+    assert paths == ["scan_search_sharded", "myers_search_many_sharded"], \
+        paths
     for i in range(2):
         ora = levenshtein_search_naive_with_opts(
             needles[i], hay, 2, SearchType.All, LEVENSHTEIN_COSTS, False
         )
-        assert got[i] == ora, i
+        assert got[i] == ora and got[i], i

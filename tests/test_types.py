@@ -7,7 +7,7 @@ max_k/unit_k bucket rules mirror levenshtein.rs:399-426, 731-763.
 import numpy as np
 import pytest
 
-from triple_accel_tpu import (
+from triple_accel_jax import (
     EditCosts,
     LEVENSHTEIN_COSTS,
     Match,
@@ -17,7 +17,7 @@ from triple_accel_tpu import (
     fill_str,
     to_bytes_array,
 )
-from triple_accel_tpu.dispatch import (
+from triple_accel_jax.dispatch import (
     compute_max_k,
     compute_unit_k,
     dispatch_unit_k,
